@@ -1,0 +1,48 @@
+"""Method configuration dataclasses (the P2P slice).
+
+Counterpart of ``image_editing_framework_tpu/core/config.py``: the sampler
+and Prompt-to-Prompt configurations, with the reference's defaults
+(p2p/edit_real.py:42-51). The other methods' configurations arrive with
+their slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple, Union
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerConfig:
+    """Shared denoising-loop configuration (reference defaults:
+    50 steps / CFG 7.5, p2p/edit_real.py:42-45)."""
+
+    num_inference_steps: int = 50
+    guidance_scale: float = 7.5
+    height: int = 512
+    width: int = 512
+    seed: int = 8888
+
+    @property
+    def latent_height(self) -> int:
+        return self.height // 8
+
+    @property
+    def latent_width(self) -> int:
+        return self.width // 8
+
+
+@dataclasses.dataclass(frozen=True)
+class P2PConfig:
+    """Prompt-to-Prompt (reference: p2p/edit_real.py:49-51; edit_syn uses
+    self_replace_steps=0.4, p2p/edit_syn.py:41-42)."""
+
+    edit_type: str = "replace"  # "replace" | "refine"
+    cross_replace_steps: Union[float, Dict[str, Tuple[float, float]]] = 0.8
+    self_replace_steps: Union[float, Tuple[float, float]] = 0.6
+    # Optional reweighting on top of replace/refine (AttentionReweight).
+    eq_words: Tuple[str, ...] = ()
+    eq_values: Tuple[float, ...] = ()
+    # Optional local blend words (LocalBlend mask).
+    blend_words: Optional[Tuple[Tuple[str, ...], Tuple[str, ...]]] = None
+    blend_threshold: float = 0.3

@@ -1,0 +1,42 @@
+"""DDIM inversion as a loop over steps.
+
+Counterpart of ``image_editing_framework_tpu/inversion/ddim.py``. Matches the
+reference loop (p2p/inversion/ddim.py:21-32): S conditional-only UNet
+evaluations walking timesteps in ascending order, collecting the full latent
+trajectory (S+1 latents including the input).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from image_editing_framework_torch.core.scheduler import DDIMSchedule, ddim_reverse_step, inversion_timestep
+
+
+@torch.no_grad()
+def _invert_scan(unet, sched: DDIMSchedule, latent: torch.Tensor, cond_context: torch.Tensor):
+    """latent (B, h, w, 4), cond_context (B, 77, D) -> (last, trajectory (S+1, B, h, w, 4))."""
+    lat = latent
+    traj = [latent]
+    for i in range(sched.num_steps):
+        eps, _ = unet(lat, inversion_timestep(sched, i), cond_context)
+        lat = ddim_reverse_step(sched, eps, i, lat)
+        traj.append(lat)
+    return lat, torch.stack(traj)
+
+
+def ddim_invert(
+    pipe, latent: torch.Tensor, prompt: str
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[dict]]:
+    """Invert a latent under a source prompt.
+
+    Returns (final_noised_latent, trajectory (S+1,B,...), context (2,77,D),
+    added_cond) — the context includes the uncond half for downstream NTI,
+    mirroring the reference's get_context (p2p/inversion/ddim.py:43-57).
+    ``added_cond`` is None on the SD path.
+    """
+    context, _ = pipe.encode_prompts([prompt])
+    last, traj = _invert_scan(pipe.unet, pipe.scheduler, latent, context[1:])
+    return last, traj, context, None

@@ -1,0 +1,94 @@
+"""The shared denoising loop over DDIM steps.
+
+Counterpart of ``image_editing_framework_tpu/methods/base.py``: latents for
+all P prompt branches advance together; classifier-free guidance doubles the
+batch inside the step ([uncond x P, cond x P]); the editing control is sliced
+per step with ``ctrl.at_step(i)``; LocalBlend sums the recorded 16x16
+cross-attention maps across steps and blends after every scheduler step
+(p2p/model/sd_utils.py:78 ``controller.step_callback``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from image_editing_framework_torch.core.scheduler import DDIMSchedule, ddim_step
+from image_editing_framework_torch.ops.controls import NoneControl
+
+
+@dataclasses.dataclass
+class LocalBlend:
+    """Word-mask latent blending (reference: p2p/model/ptp_utils.py:6-32).
+
+    Takes the summed recorded 16x16 cross-attention maps; each step derives
+    a spatial mask from the word-selected maps and blends every branch's
+    latent toward the source's outside the mask.
+    """
+
+    alpha_layers: torch.Tensor  # (P, 77)
+    threshold: float = 0.3
+
+    def mask(self, x_t: torch.Tensor, store: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """(P, h, w) f32 normalised word mask, before the threshold."""
+        maps = torch.stack([store[k] for k in sorted(store)], dim=1)  # (P, M, 256, 77)
+        p, m, n, _ = maps.shape
+        side = int(n**0.5)
+        masked = (maps.float() * self.alpha_layers[:, None, None, :]).sum(-1)
+        masked = masked.mean(1).reshape(p, 1, side, side)
+        # 3x3 max-pool, stride 1, SAME (reference: nnf.max_pool2d(k=3, pad=1)).
+        pooled = F.max_pool2d(masked, 3, stride=1, padding=1)
+        mask = F.interpolate(pooled, size=tuple(x_t.shape[1:3]), mode="nearest")[:, 0]
+        return mask / mask.amax(dim=(1, 2), keepdim=True)
+
+    def __call__(self, x_t: torch.Tensor, store: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if not store:
+            return x_t
+        mask = self.mask(x_t, store) > self.threshold
+        union = mask.any(dim=0).to(x_t.dtype)[None, :, :, None]
+        return x_t[:1] + union * (x_t - x_t[:1])
+
+
+@torch.no_grad()
+def _denoise_scan(
+    unet,
+    sched: DDIMSchedule,
+    latents: torch.Tensor,  # (P, h, w, 4)
+    context: torch.Tensor,  # (2P, 77, D)
+    ctrl,
+    guidance_scale: float,
+    blend: Optional[LocalBlend],
+    store_mode: Optional[str],  # None | 'sum' (LocalBlend cross-step sum)
+) -> torch.Tensor:
+    lat = latents
+    store: Dict[str, torch.Tensor] = {}
+    for i in range(sched.num_steps):
+        step_ctrl = ctrl.at_step(i)
+        if store_mode is not None:
+            step_ctrl = step_ctrl.bind_store(store, i)
+        eps, rec = unet(torch.cat([lat, lat]), int(sched.timesteps[i]), context, step_ctrl)
+        eps_u, eps_c = eps.chunk(2)
+        lat = ddim_step(sched, eps_u + guidance_scale * (eps_c - eps_u), i, lat)
+        if store_mode == "sum":
+            store = {k: store[k] + rec[k].float() if k in store else rec[k].float() for k in rec}
+        if blend is not None:
+            lat = blend(lat, store)
+    return lat
+
+
+def denoise(
+    pipe,
+    latents: torch.Tensor,
+    context: torch.Tensor,
+    ctrl=None,
+    guidance_scale: float = 7.5,
+    blend: Optional[LocalBlend] = None,
+) -> torch.Tensor:
+    """Run the full DDIM denoising loop; returns the final (P, h, w, 4) latents."""
+    if ctrl is None:
+        ctrl = NoneControl()
+    store_mode = "sum" if blend is not None else None
+    return _denoise_scan(pipe.unet, pipe.scheduler, latents, context, ctrl, guidance_scale, blend, store_mode)

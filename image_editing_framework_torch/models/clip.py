@@ -1,0 +1,143 @@
+"""CLIP text encoder (OpenAI CLIP ViT-L/14 for SD1.x).
+
+Counterpart of ``CLIPTextModel`` in ``image_editing_framework_tpu/models/clip.py``.
+Module and parameter names follow transformers' ``CLIPTextModel``, so
+``state_dict()`` keys are its keys. The attention (77 tokens, causal) is
+plain tensor code, as in JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    vocab_size: int = 49408
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_length: int = 77
+    hidden_act: str = "quick_gelu"  # "quick_gelu" (OpenAI) | "gelu" (OpenCLIP)
+    # projection to the pooled text embedding (SDXL's text_encoder_2)
+    projection_dim: Optional[int] = None
+
+
+CLIP_VIT_L = CLIPTextConfig()  # SD1.x text_encoder
+
+TINY_CLIP = CLIPTextConfig(
+    vocab_size=64, hidden_size=32, num_layers=2, num_heads=2,
+    intermediate_size=64, projection_dim=32,
+)
+
+
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "quick_gelu":
+        return x * torch.sigmoid(1.702 * x)
+    return F.gelu(x)
+
+
+class CLIPAttention(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.hidden_size
+        self.q_proj, self.k_proj, self.v_proj, self.out_proj = (nn.Linear(d, d) for _ in range(4))
+
+    def forward(self, x, causal_mask):
+        cfg = self.cfg
+        b, n, _ = x.shape
+        d = cfg.hidden_size // cfg.num_heads
+        q, k, v = (f(x).view(b, n, cfg.num_heads, d).transpose(1, 2) for f in (self.q_proj, self.k_proj, self.v_proj))
+        s = torch.matmul(q, k.transpose(-1, -2)).float() / math.sqrt(d)
+        s = torch.where(causal_mask, s, torch.finfo(torch.float32).min)
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        out = torch.matmul(p, v).transpose(1, 2).reshape(b, n, cfg.hidden_size)
+        return self.out_proj(out)
+
+
+class CLIPMLP(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.act = cfg.hidden_act
+        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+
+    def forward(self, x):
+        return self.fc2(_act(self.act, self.fc1(x)))
+
+
+class CLIPLayer(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+        self.self_attn = CLIPAttention(cfg)
+        self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+        self.mlp = CLIPMLP(cfg)
+
+    def forward(self, x, causal_mask):
+        x = x + self.self_attn(self.layer_norm1(x), causal_mask)
+        return x + self.mlp(self.layer_norm2(x))
+
+
+class _Embeddings(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embedding = nn.Embedding(cfg.max_length, cfg.hidden_size)
+
+
+class _Encoder(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.layers = nn.ModuleList([CLIPLayer(cfg) for _ in range(cfg.num_layers)])
+
+
+class _TextTransformer(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.embeddings = _Embeddings(cfg)
+        self.encoder = _Encoder(cfg)
+        self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+
+
+class CLIPTextModel(nn.Module):
+    def __init__(self, config: CLIPTextConfig):
+        super().__init__()
+        self.config = config
+        self.text_model = _TextTransformer(config)
+        if config.projection_dim is not None:
+            self.text_projection = nn.Linear(config.hidden_size, config.projection_dim, bias=False)
+
+    def forward(self, input_ids: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """input_ids: (B, 77) int.
+
+        Returns dict with:
+          last_hidden_state: (B, 77, D) after the final LayerNorm,
+          penultimate:       (B, 77, D) hidden_states[-2] (pre final LN),
+          pooled:            (B, D_proj) EOS-position embedding (projected if
+                             projection_dim is set).
+        """
+        cfg, tm = self.config, self.text_model
+        b, n = input_ids.shape
+        x = tm.embeddings.token_embedding(input_ids) + tm.embeddings.position_embedding.weight[None, :n]
+        causal = torch.tril(torch.ones((n, n), dtype=torch.bool, device=input_ids.device))[None, None]
+        penultimate = None
+        for i, layer in enumerate(tm.encoder.layers):
+            if i == cfg.num_layers - 1:
+                penultimate = x
+            x = layer(x, causal)
+        last = tm.final_layer_norm(x)
+        # Pooled: embedding at the EOS token — CLIP takes argmax(ids) since
+        # EOS has the highest token id.
+        pooled = last[torch.arange(b, device=last.device), input_ids.argmax(dim=-1)]
+        if cfg.projection_dim is not None:
+            pooled = self.text_projection(pooled)
+        return {"last_hidden_state": last, "penultimate": penultimate, "pooled": pooled}

@@ -1,0 +1,61 @@
+"""Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and becomes one shared
+library, built on first use into ``_build/`` (ignored by git) under a name
+that carries a hash of the source, so an edited source is rebuilt and an
+unchanged one is loaded as it is. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Dict, Tuple
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD = os.path.join(_PKG, "_build")
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+
+# name -> loaded library; a library is loaded once per process.
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+    return path
+
+
+def _target(name: str) -> Tuple[str, str]:
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    return src, os.path.join(BUILD, f"lib{name}_{digest}.so")
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless it is built already; returns the
+    library's path. Raises with the compiler's output if nvcc fails."""
+    src, out = _target(name)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    if name not in _loaded:
+        _loaded[name] = ctypes.CDLL(build(name))
+    return _loaded[name]

@@ -1,0 +1,45 @@
+"""Shared fixtures for the PyTorch port's parity tests (tests/test_torch_*.py).
+
+One set of random weights lives in the JAX tiny pipeline; ``export_params``
+turns it into diffusers-keyed arrays, which the port's strict loader copies
+into the port's tiny pipeline. Inputs are made with numpy and handed to both
+frameworks; NHWC <-> NCHW happens only inside the port, never here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from image_editing_framework_torch.models.weights import load_weights
+from image_editing_framework_torch.pipelines import tiny_pipeline as torch_tiny_pipeline
+from image_editing_framework_tpu.models import loader
+from image_editing_framework_tpu.pipelines import tiny_pipeline as jax_tiny_pipeline
+
+# f32 convolutions through cuDNN would run in TF32 by default on a card;
+# parity is stated in true f32.
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def shared_pipelines(num_steps: int = 4, seed: int = 0):
+    """(jax_pipe, torch_pipe) with the same tiny-pipeline weights; the port's
+    runs on the CPU in f32."""
+    jpipe = jax_tiny_pipeline(num_steps=num_steps, seed=seed)
+    tpipe = torch_tiny_pipeline(num_steps=num_steps, device="cpu")
+    load_weights(tpipe.unet, loader.export_params(jpipe.unet_params, loader.unet_key))
+    load_weights(tpipe.vae, loader.export_params(jpipe.vae_params, loader.vae_key))
+    load_weights(tpipe.text_encoder, loader.export_params(jpipe.text_params, loader.clip_key))
+    return jpipe, tpipe
+
+
+def t(x) -> torch.Tensor:
+    """numpy (or JAX) array -> CPU torch tensor."""
+    return torch.from_numpy(np.array(x))
+
+
+def n(x) -> np.ndarray:
+    """torch tensor or JAX array -> numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
