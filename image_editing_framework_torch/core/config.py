@@ -1,9 +1,9 @@
-"""Method configuration dataclasses (the P2P slice).
+"""Method configuration dataclasses (the P2P and null-text slices).
 
-Counterpart of ``image_editing_framework_tpu/core/config.py``: the sampler
-and Prompt-to-Prompt configurations, with the reference's defaults
-(p2p/edit_real.py:42-51). The other methods' configurations arrive with
-their slices.
+Counterpart of ``image_editing_framework_tpu/core/config.py``: the sampler,
+Prompt-to-Prompt and null-text inversion configurations, with the
+reference's defaults (p2p/edit_real.py:42-55). The other methods'
+configurations arrive with their slices.
 """
 
 from __future__ import annotations
@@ -46,3 +46,20 @@ class P2PConfig:
     # Optional local blend words (LocalBlend mask).
     blend_words: Optional[Tuple[Tuple[str, ...], Tuple[str, ...]]] = None
     blend_threshold: float = 0.3
+
+
+@dataclasses.dataclass(frozen=True)
+class NTIConfig:
+    """Null-text inversion (reference: p2p/edit_real.py:54-55 and
+    p2p/inversion/nti.py:17; the XL variant in p2p uses lr=0.5*(1-i/500)
+    (p2p/inversion/nti.py:50,69) while the other methods use
+    5e-2*(1-i/100) (masactrl/inversion/nti.py:69))."""
+
+    num_inner_steps: int = 10
+    epsilon: float = 1e-5
+    base_lr: float = 1e-2
+    lr_decay_span: float = 100.0
+    # Checkpointed UNet for the inner Adam gradients. None = auto: off on
+    # the SD path (on for XL at latent side >= 128 in the JAX package, which
+    # the XL slice brings); True is refused until then.
+    remat: Optional[bool] = None

@@ -52,6 +52,17 @@ class LocalBlend:
         return x_t[:1] + union * (x_t - x_t[:1])
 
 
+def _step_context(context: torch.Tensor, uncond_seq: Optional[torch.Tensor], i: int) -> torch.Tensor:
+    """Step i's (2P, 77, D) context: the unconditional half replaced by the
+    NTI embedding ``uncond_seq[i]``, broadcast to P and cast to the
+    context's dtype (JAX ``methods/base.py:95-99``)."""
+    if uncond_seq is None:
+        return context
+    p = context.shape[0] // 2
+    u = uncond_seq[i][None].expand((p,) + tuple(context.shape[1:])).to(context.dtype)
+    return torch.cat([u, context[p:]], dim=0)
+
+
 @torch.no_grad()
 def _denoise_scan(
     unet,
@@ -62,14 +73,22 @@ def _denoise_scan(
     guidance_scale: float,
     blend: Optional[LocalBlend],
     store_mode: Optional[str],  # None | 'sum' (LocalBlend cross-step sum)
+    uncond_seq: Optional[torch.Tensor] = None,  # (S, 77, D) NTI embeddings
+    source_replay: Optional[torch.Tensor] = None,  # (S+1, 1, h, w, 4) inversion trajectory
 ) -> torch.Tensor:
     lat = latents
+    steps = sched.num_steps
     store: Dict[str, torch.Tensor] = {}
-    for i in range(sched.num_steps):
+    for i in range(steps):
         step_ctrl = ctrl.at_step(i)
         if store_mode is not None:
             step_ctrl = step_ctrl.bind_store(store, i)
-        eps, rec = unet(torch.cat([lat, lat]), int(sched.timesteps[i]), context, step_ctrl)
+        if source_replay is not None:
+            # direct inversion: the source branch replays its inversion
+            # trajectory (masactrl/model/sd_utils.py:95-99)
+            lat = torch.cat([source_replay[steps - i].to(lat.dtype), lat[1:]], dim=0)
+        ctx = _step_context(context, uncond_seq, i)
+        eps, rec = unet(torch.cat([lat, lat]), int(sched.timesteps[i]), ctx, step_ctrl)
         eps_u, eps_c = eps.chunk(2)
         lat = ddim_step(sched, eps_u + guidance_scale * (eps_c - eps_u), i, lat)
         if store_mode == "sum":
@@ -86,9 +105,17 @@ def denoise(
     ctrl=None,
     guidance_scale: float = 7.5,
     blend: Optional[LocalBlend] = None,
+    uncond_seq: Optional[torch.Tensor] = None,
+    source_replay: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Run the full DDIM denoising loop; returns the final (P, h, w, 4) latents."""
+    """Run the full DDIM denoising loop; returns the final (P, h, w, 4) latents.
+
+    ``uncond_seq`` (S, 77, D): per-step unconditional embeddings from
+    null-text inversion. ``source_replay`` (S+1, 1, h, w, 4): the inversion
+    trajectory, which the source branch replays at every step (direct
+    inversion)."""
     if ctrl is None:
         ctrl = NoneControl()
     store_mode = "sum" if blend is not None else None
-    return _denoise_scan(pipe.unet, pipe.scheduler, latents, context, ctrl, guidance_scale, blend, store_mode)
+    return _denoise_scan(pipe.unet, pipe.scheduler, latents, context, ctrl, guidance_scale, blend, store_mode,
+                         uncond_seq, source_replay)

@@ -8,7 +8,7 @@ loop over steps.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -40,9 +40,12 @@ def p2p_edit(
     latent: torch.Tensor,  # (1, h, w, 4) — inverted or sampled start latent
     cfg: P2PConfig = P2PConfig(),
     sampler: SamplerConfig = SamplerConfig(),
+    uncond_seq: Optional[torch.Tensor] = None,  # (S, 77, D) NTI embeddings
+    source_replay: Optional[torch.Tensor] = None,  # direct-inversion trajectory
 ) -> np.ndarray:
     """Run a P2P edit; returns uint8 images (P, H, W, 3) where row 0 is the
     source-branch reconstruction (the reference's inversion.png)."""
     latents0, context, ctrl, blend = p2p_setup(pipe, prompts, latent, cfg, sampler)
-    final = denoise(pipe, latents0, context, ctrl, guidance_scale=sampler.guidance_scale, blend=blend)
+    final = denoise(pipe, latents0, context, ctrl, guidance_scale=sampler.guidance_scale, blend=blend,
+                    uncond_seq=uncond_seq, source_replay=source_replay)
     return pipe.latent2image(final)

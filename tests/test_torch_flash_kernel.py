@@ -1,12 +1,13 @@
-"""The flash kernel against its plain version on the card.
+"""The flash kernels (forward and backward) against their plain versions on
+the card.
 
 Imports only torch and the port, so it runs on the GPU machine, which has
 no JAX (``--noconftest`` skips the JAX-pinning conftest there):
 
     python3 -m pytest --noconftest -q -m cuda tests/test_torch_flash_kernel.py
 
-Without a card every test skips (the CPU suite holds the plain version
-against JAX in test_torch_flash_attention.py).
+Without a card every test skips (the CPU suite holds the plain versions
+against JAX in test_torch_flash_attention.py and test_torch_flash_grad.py).
 """
 
 import pytest
@@ -58,12 +59,82 @@ def test_flash_kernel_matches_plain_version(cuda_device, dtype, b, h, nq, nk, d,
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
 
 
+GRID = [(2, 8, 1024, 1024, 40, False, True), (2, 8, 256, 256, 80, False, True), (1, 8, 64, 64, 160, False, False),
+        (2, 3, 130, 1000, 64, True, False), (2, 2, 70, 77, 16, True, True), (1, 2, 33, 50, 32, False, False)]
+
+
+def _bwd_inputs(device, dtype, b, h, nq, nk, d, with_bias, split, seed=0):
+    """q, k, v, dO (head-split views of (B, N, H*D) projections when
+    ``split``, as the UNet and autograd give them), the bias, and the
+    forward kernel's output and lse."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def make(n):
+        if split:
+            return split_heads(torch.randn(b, n, h * d, device=device, dtype=dtype, generator=g), h)
+        return torch.randn(b, h, n, d, device=device, dtype=dtype, generator=g)
+
+    q, k, v, do = make(nq), make(nk), make(nk), make(nq)
+    bias = None
+    if with_bias:
+        bias = torch.zeros(b, nk, device=device)
+        bias[:, nk // 2:] = tfa.NEG_INF
+        bias[0] = tfa.NEG_INF
+    o, lse = tfa.flash_attention(q, k, v, bias, return_lse=True)
+    return q, k, v, do, bias, o, lse
+
+
 @pytest.mark.cuda
-def test_flash_kernel_refuses_inputs_that_require_grad(cuda_device):
-    """Inference only until the backward kernels arrive: no answer with a
-    silently missing gradient."""
-    q = torch.randn(1, 2, 64, 40, device=cuda_device, dtype=torch.bfloat16, requires_grad=True)
-    before = tfa.flash_attention.launches
-    with pytest.raises(RuntimeError, match="backward"):
-        tfa.flash_attention(q, q.detach(), q.detach())
-    assert tfa.flash_attention.launches == before
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,nq,nk,d,with_bias,split", GRID)
+def test_flash_bwd_kernels_match_plain_version(cuda_device, dtype, b, h, nq, nk, d, with_bias, split):
+    """Both backward kernels against ``flash_attention_bwd_reference`` on the
+    same inputs, within ``grad_parity_atol`` per output (bf16: 2^-6 of the
+    largest gradient; f32: 2^-14)."""
+    q, k, v, do, bias, o, lse = _bwd_inputs(cuda_device, dtype, b, h, nq, nk, d, with_bias, split)
+    before = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches, tfa.flash_attention_bwd.copies)
+    got = tfa.flash_attention_bwd(q, k, v, bias, o, do, lse)
+    ref = tfa.flash_attention_bwd_reference(q, k, v, bias, o, do, lse)
+    torch.cuda.synchronize()
+    assert (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches, tfa.flash_attention_bwd.copies) == (
+        before[0] + 1, before[1] + 1, before[2])
+    for a, r in zip(got, ref):
+        assert a.dtype == dtype and a.shape == r.shape
+        torch.testing.assert_close(a.float(), r.float(), atol=tfa.grad_parity_atol(r), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_kernels_are_deterministic(cuda_device, dtype):
+    """No atomics: every block owns its outputs, so two runs give the same bits."""
+    q, k, v, do, bias, o, lse = _bwd_inputs(cuda_device, dtype, 1, 8, 1000, 1000, 40, True, True)
+    first = tfa.flash_attention_bwd(q, k, v, bias, o, do, lse)
+    second = tfa.flash_attention_bwd(q, k, v, bias, o, do, lse)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_flash_all_neg_inf_row_gets_zero_gradients_on_the_card(cuda_device):
+    q, k, v, do, _, _, _ = _bwd_inputs(cuda_device, torch.bfloat16, 2, 2, 64, 128, 80, False, False)
+    bias = torch.zeros(2, 128, device=cuda_device)
+    bias[1] = -float("inf")
+    o, lse = tfa.flash_attention(q, k, v, bias, return_lse=True)
+    for x in tfa.flash_attention_bwd(q, k, v, bias, o, do, lse):
+        assert torch.isfinite(x).all() and torch.all(x[1] == 0)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_runs_the_backward_for_inputs_that_require_grad(cuda_device):
+    """Inputs that require grad run the forward kernel with its lse and, on
+    backward, both backward kernels: the gradient matches autograd through
+    the plain forward."""
+    x = torch.randn(1, 64, 2 * 40, device=cuda_device, dtype=torch.float32, requires_grad=True)
+    q = split_heads(x, 2)
+    before = (tfa.flash_attention.launches, tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches)
+    out = tfa.flash_attention(q, q, q)
+    (g,) = torch.autograd.grad(out.square().sum(), x)
+    assert (tfa.flash_attention.launches, tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    (want,) = torch.autograd.grad(tfa.flash_attention_reference(q, q, q).square().sum(), x)
+    torch.testing.assert_close(g, want, atol=1e-4, rtol=1e-4)

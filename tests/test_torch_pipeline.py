@@ -34,25 +34,13 @@ from image_editing_framework_tpu.methods import common as jcommon
 from image_editing_framework_tpu.methods.p2p import p2p_edit as j_p2p_edit
 from image_editing_framework_tpu.ops import controls as jctl
 from image_editing_framework_tpu.ops import schedules as jsched
-from torch_port_helpers import n, shared_pipelines, t
+from torch_port_helpers import RecordingBlend, n, shared_pipelines, t
 
 STEPS = 4
 ATOL = 1e-3
 PROMPTS = ["a cat sitting on the grass", "a dog sitting on the grass"]
 BLEND = (("cat",), ("dog",))
 MARGIN = 1e-3
-
-
-class _RecordingBlend(tbase.LocalBlend):
-    """LocalBlend that keeps each step's distance of the mask from its threshold."""
-
-    gaps = None
-
-    def __call__(self, x_t, store):
-        if store:
-            gap = (self.mask(x_t, store) - self.threshold).abs().min().item()
-            self.gaps = (self.gaps or []) + [gap]
-        return super().__call__(x_t, store)
 
 
 @pytest.fixture(scope="module")
@@ -89,7 +77,7 @@ def test_invert_and_p2p_edit_match_jax(pipes):
     jfinal = _jax_edit_latents(jpipe, jnp.asarray(shared))
     sampler = TSampler(height=32, width=32)
     lat0, context, ctrl, blend = p2p_setup(tpipe, PROMPTS, t(shared), TP2PConfig(blend_words=BLEND), sampler)
-    blend = _RecordingBlend(blend.alpha_layers, blend.threshold)
+    blend = RecordingBlend(blend.alpha_layers, blend.threshold)
     tfinal = tbase.denoise(tpipe, lat0, context, ctrl, guidance_scale=sampler.guidance_scale, blend=blend)
     assert len(blend.gaps) == STEPS and min(blend.gaps) > MARGIN, blend.gaps
     assert torch.isfinite(tfinal).all()

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from image_editing_framework_torch.methods.base import LocalBlend
 from image_editing_framework_torch.models.weights import load_weights
 from image_editing_framework_torch.pipelines import tiny_pipeline as torch_tiny_pipeline
 from image_editing_framework_tpu.models import loader
@@ -43,3 +44,47 @@ def n(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+class RecordingBlend(LocalBlend):
+    """LocalBlend that keeps each step's distance of the mask from its
+    threshold: a mask value near the threshold could flip between
+    frameworks, so a parity test checks this margin."""
+
+    gaps = None
+
+    def __call__(self, x_t, store):
+        if store:
+            gap = (self.mask(x_t, store) - self.threshold).abs().min().item()
+            self.gaps = (self.gaps or []) + [gap]
+        return super().__call__(x_t, store)
+
+
+# Smallest |g| / max|g| an NTI gradient may have: Adam's first step moves an
+# element by lr · g / (|g| + 1e-8), about lr · sign(g).
+GRAD_MARGIN = 1e-7
+
+
+def recorded_grads(monkeypatch):
+    """Every gradient ``torch.autograd.grad`` returns from now on (the port's
+    NTI takes one per inner iteration), recorded on its way out."""
+    grads = []
+    grad = torch.autograd.grad
+
+    def recording(*args, **kw):
+        out = grad(*args, **kw)
+        grads.append(out[0].detach().clone())
+        return out
+
+    monkeypatch.setattr(torch.autograd, "grad", recording)
+    return grads
+
+
+def check_grad_margin(grads, count):
+    """``count`` gradients, none with an element within GRAD_MARGIN · max|g|
+    of 0, where f32 noise could give it the other sign in the other
+    framework."""
+    assert len(grads) == count
+    for g in grads:
+        a = g.abs()
+        assert a.min().item() >= GRAD_MARGIN * a.max().item(), a.min().item() / a.max().item()
