@@ -6,16 +6,20 @@ Phases, one line of output each (any failure exits non-zero):
   1. device: card name and power limit, torch/CUDA versions, kernel build
      (every CUDA source of the port, one nvcc each, all started together);
   2. kernels: each kernel against its plain PyTorch version on the card at
-     its path's shapes, as the head-split views the UNet passes (bf16 and
-     f32), and at edge cases (padded Nk, Nq off the tile, NEG_INF bias
+     its paths' shapes (SD1.5's and SDXL's), as the head-split views the
+     UNet passes (bf16 and f32), and at edge cases (padded Nk, Nq off the tile, NEG_INF bias
      segments, fully masked rows, lse), within ``parity_atol`` (forward)
      and ``grad_parity_atol`` (backward); at the path's shapes also the
      kernel's, plain version's and library call's times, the bound, and the
      readings of planted faults (emulated in plain PyTorch) that the bf16
      limit must reject;
+     probe: the tile-shape probe kernel against its plain version for
+     every layout and head dim, every block's value, then its timed table
+     through the tool's entry point;
   3. tiny: the tiny pipeline's invert + P2P edit, and its null-text
      inversion + edit, on the card against the same pipeline on the CPU (the
-     kernels' plain versions);
+     kernels' plain versions); the same for the tiny SDXL pipeline, its NTI
+     with and without the checkpointed UNet;
   4. main path: SD1.5 at full width (random weights from a seed), 512²,
      bf16 — image2latent, 50-step DDIM inversion, 50-step P2P replace edit
      with LocalBlend at CFG batch 4, decode — with the launch counts of
@@ -26,6 +30,10 @@ Phases, one line of output each (any failure exits non-zero):
      per-step embeddings; launch counts of every kernel read around it;
   6. profile: one UNet forward at the edit's and the inversion's batch under
      torch.profiler: device busy time, idle share, launches, top kernels;
+  7. xl main path, xl nti path, xl profile: the same three on SDXL at full
+     width, 1024², bf16 (the NTI path with 2 inner iterations per step and
+     the checkpointed UNet), decode full-frame and tiled;
+  8. refiner: img2img through the SDXL refiner at 1024², strength 0.3;
 then each phase's seconds, the kernels JSON line, the card line, and the
 result line last.
 """
@@ -43,13 +51,22 @@ import numpy as np
 import torch
 
 STEPS = 50
-PATH_SHAPES = [(4096, 40, 5), (1024, 80, 5), (256, 160, 5), (64, 160, 1)]  # (tokens, head dim, sites)
-# the self-attention sites NTI's gradient flows through (the first site of
-# down block 0 sees no embedding): (tokens, head dim, sites)
-GRAD_SHAPES = [(4096, 40, 4), (1024, 80, 5), (256, 160, 5), (64, 160, 1)]
-GRAD_SITES = sum(sites for _, _, sites in GRAD_SHAPES)
-SOURCES = ("flash_fwd", "flash_bwd")
-HEADS = 8
+# self-attention sites of one UNet forward, per model: (tokens, head dim, heads, sites)
+PATH_SHAPES = {
+    "sd": [(4096, 40, 8, 5), (1024, 80, 8, 5), (256, 160, 8, 5), (64, 160, 8, 1)],  # SD1.5 at 512²
+    "xl": [(4096, 64, 10, 10), (1024, 64, 20, 60)],  # SDXL at 1024²
+}
+# the sites NTI's gradient flows through (the first site sees no embedding)
+GRAD_SHAPES = {
+    "sd": [(4096, 40, 8, 4), (1024, 80, 8, 5), (256, 160, 8, 5), (64, 160, 8, 1)],
+    "xl": [(4096, 64, 10, 9), (1024, 64, 20, 60)],
+}
+SITES = {model: sum(shape[3] for shape in shapes) for model, shapes in PATH_SHAPES.items()}
+GRAD_SITES = {model: sum(shape[3] for shape in shapes) for model, shapes in GRAD_SHAPES.items()}
+SOURCES = ("flash_fwd", "flash_bwd", "mma_probe")
+HEADS = 8  # of the edge cases
+XL_INNER_STEPS = 2  # NTI inner iterations per step on the XL path (the default is 10)
+PROBE_RTOL = 1e-6  # probe kernel vs plain version, relative to the sum of the terms' magnitudes
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 PEAK_F32 = 67e12  # CUDA-core f32 FLOP/s
 HBM = 3.35e12  # bytes/s
@@ -164,20 +181,23 @@ def fault_readings(q, k, v, ref):
 
 
 def phase_kernels(gen):
-    """Kernel vs plain version; times at the path's shapes. Returns the
-    worst errors and the 16-site sums of one CFG-batch UNet forward."""
+    """Kernel vs plain version; times at the paths' shapes. Returns the
+    worst errors and, per model, the sums over the sites of one CFG-batch
+    UNet forward (16 for SD1.5, 70 for SDXL)."""
     from image_editing_framework_torch.ops import flash_attention as fa
     from image_editing_framework_torch.ops.attention import split_heads
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
-    sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    sums = {model: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+            for model in PATH_SHAPES}
 
-    def check(dtype, b, h, nq, nk, d, bias=None, lse=False, timed=False, sites=0):
-        """Path shapes (timed) come as the UNet gives them: head-split views
-        of (B, N, H·D) projections; the edge cases as contiguous tensors."""
+    def check(dtype, b, h, nq, nk, d, bias=None, lse=False, timed=False, sites=0, model=None):
+        """Path shapes (``model`` given) come as the UNet gives them:
+        head-split views of (B, N, H·D) projections; the edge cases as
+        contiguous tensors."""
         def make(n):
-            if timed:
+            if model:
                 return split_heads(torch.randn(b, n, h * d, device="cuda", dtype=dtype, generator=gen), h)
             return torch.randn(b, h, n, d, device="cuda", dtype=dtype, generator=gen)
 
@@ -197,6 +217,8 @@ def phase_kernels(gen):
         worst[dtype] = max(worst[dtype], err)
         row = dict(dtype=str(dtype).split(".")[1], shape=[b, h, nq, nk, d], strides=list(q.stride()),
                    bias=bias is not None, lse=lse, max_abs_err=err, tol=tol)
+        if model:
+            row["model"] = model
         if timed and dtype == torch.bfloat16:
             row["faults"] = faults = fault_readings(q, k, v, ref)
             must_fail = ["skipped_key_tile"] + (["no_acc_rescale"] if nk > KEY_TILE else [])
@@ -213,14 +235,17 @@ def phase_kernels(gen):
                 bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
             )
             if dtype == torch.bfloat16 and b == 4:
-                for key in sums:
-                    sums[key] += sites * row[key]
+                for key in sums[model]:
+                    sums[model][key] += sites * row[key]
         emit("kernel", name="flash_fwd", **row)
 
     for dtype in (torch.bfloat16, torch.float32):
         for b in (1, 4):
-            for n, d, sites in PATH_SHAPES:
-                check(dtype, b, HEADS, n, n, d, timed=True, sites=sites)
+            for model, shapes in PATH_SHAPES.items():
+                for n, d, h, sites in shapes:
+                    # SDXL's f32 shapes are checked and not timed: f32 is off its path
+                    check(dtype, b, h, n, n, d, timed=model == "sd" or dtype == torch.bfloat16, sites=sites,
+                          model=model)
         for nk in (77, 1000):  # keys not a multiple of the kernel's tile
             check(dtype, 2, HEADS, 256, nk, 40, lse=True)
         bias = torch.zeros(2, 1000, device="cuda")
@@ -230,7 +255,8 @@ def phase_kernels(gen):
         bias = torch.zeros(2, 512, device="cuda")
         bias[0] = float("-inf")  # every logit -inf: the row returns 0
         check(dtype, 2, HEADS, 64, 512, 160, bias=bias, lse=True)
-    sums["bound_ms"], sums["bound_by"] = bound_ms(sums["flops"], sums["bytes"], torch.bfloat16)
+    for part in sums.values():
+        part["bound_ms"], part["bound_by"] = bound_ms(part["flops"], part["bytes"], torch.bfloat16)
     return worst, sums
 
 
@@ -260,22 +286,23 @@ def bwd_fault_readings(q, k, v, do, o, lse, ref):
 
 def phase_bwd_kernels(gen):
     """Both backward kernels against their plain version; times at NTI's
-    shapes. Returns the worst errors and, per kernel, the sums over the 15
-    sites of one inner iteration (one UNet backward at batch 1)."""
+    shapes. Returns the worst errors and, per model and kernel, the sums over
+    the sites of one inner iteration (one UNet backward at batch 1: 15 sites
+    for SD1.5, 69 for SDXL)."""
     from image_editing_framework_torch.ops import flash_attention as fa
     from image_editing_framework_torch.ops.attention import split_heads
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     worst = {dtype: {"dq": 0.0, "dkv": 0.0} for dtype in (torch.bfloat16, torch.float32)}
     keys = ("ms", "plain_ms", "library_ms", "flops", "bytes")
-    sums = {kernel: dict.fromkeys(keys, 0.0) for kernel in ("dq", "dkv", "all")}
+    sums = {model: {kernel: dict.fromkeys(keys, 0.0) for kernel in ("dq", "dkv", "all")} for model in GRAD_SHAPES}
 
-    def check(dtype, b, h, nq, nk, d, bias=None, timed=False, sites=0, zero_batch=None):
-        """Path shapes (timed) come as the UNet and autograd give them:
-        head-split views of (B, N, H·D) tensors, dO included; the edge cases
-        as contiguous tensors."""
+    def check(dtype, b, h, nq, nk, d, bias=None, timed=False, sites=0, zero_batch=None, model=None):
+        """Path shapes (``model`` given) come as the UNet and autograd give
+        them: head-split views of (B, N, H·D) tensors, dO included; the edge
+        cases as contiguous tensors."""
         def make(n):
-            if timed:
+            if model:
                 return split_heads(torch.randn(b, n, h * d, device="cuda", dtype=dtype, generator=gen), h)
             return torch.randn(b, h, n, d, device="cuda", dtype=dtype, generator=gen)
 
@@ -299,6 +326,8 @@ def phase_bwd_kernels(gen):
         worst[dtype]["dkv"] = max(worst[dtype]["dkv"], errs["dk"], errs["dv"])
         row = dict(dtype=str(dtype).split(".")[1], shape=[b, h, nq, nk, d], strides=list(do.stride()),
                    bias=bias is not None, max_abs_err=errs, tol=tols)
+        if model:
+            row["model"] = model
         if timed and dtype == torch.bfloat16:
             row["faults"] = faults = bwd_fault_readings(q, k, v, do, o, lse, ref)
             passed = [name for name, reads in faults.items() if not any(e > tols[out] for out, e in reads.items())]
@@ -323,13 +352,14 @@ def phase_bwd_kernels(gen):
                 if dtype == torch.bfloat16:
                     for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
                                      ("flops", flops), ("bytes", nbytes)):
-                        sums[kernel][key] += sites * val
+                        sums[model][kernel][key] += sites * val
             row.update(plain_ms=plain_ms, library_ms=library_ms)
         emit("kernel", name="flash_bwd", **row)
 
     for dtype in (torch.bfloat16, torch.float32):
-        for n, d, sites in GRAD_SHAPES:
-            check(dtype, 1, HEADS, n, n, d, timed=True, sites=sites)
+        for model, shapes in GRAD_SHAPES.items():
+            for n, d, h, sites in shapes:
+                check(dtype, 1, h, n, n, d, timed=model == "sd" or dtype == torch.bfloat16, sites=sites, model=model)
         for nk in (77, 1000):  # Nq and Nk off the 64-row tile
             check(dtype, 2, HEADS, 130, nk, 40)
         bias = torch.zeros(2, 1000, device="cuda")
@@ -339,17 +369,69 @@ def phase_bwd_kernels(gen):
         bias = torch.zeros(2, 512, device="cuda")
         bias[0] = float("-inf")  # every logit -inf: zero gradients
         check(dtype, 2, HEADS, 64, 512, 160, bias=bias, zero_batch=0)
-    for kernel in sums:
-        sums[kernel]["bound_ms"], sums[kernel]["bound_by"] = bound_ms(
-            sums[kernel]["flops"], sums[kernel]["bytes"], torch.bfloat16)
+    for part in sums.values():
+        for kernel in part:
+            part[kernel]["bound_ms"], part[kernel]["bound_by"] = bound_ms(
+                part[kernel]["flops"], part[kernel]["bytes"], torch.bfloat16)
     return worst, sums
 
 
+def phase_probe():
+    """The tile-shape probe kernel against its plain version for every
+    layout and head dim (3 iterations, one block per SM, every block's value
+    read), then the timed table through the tool's entry point, with the
+    launch count read around it."""
+    from image_editing_framework_torch.tools import bench_attn_layouts as bench
+
+    blocks = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.RandomState(0)
+    worst_abs = worst_ratio = plain_ms = 0.0
+    for d in bench.HEAD_DIMS:
+        for name, (a, b, contract) in bench.operands(d, rng, "cuda").items():
+            out = bench.probe(a, b, contract, 3, blocks)
+            ref = bench.probe_reference(a, b, contract, 3)
+            torch.cuda.synchronize()
+            (ca,), (cb,) = contract
+            s = torch.matmul((a if ca == 1 else a.T).double(), (b if cb == 1 else b.T).double().T)
+            exact, abs_sum = 3 * s.sum().item(), 3 * s.abs().sum().item()
+            limit = PROBE_RTOL * abs_sum
+            # an 8 x 8 piece of the product left out of every iteration: the median piece's sum
+            tile = 3 * s.reshape(s.shape[0] // 8, 8, s.shape[1] // 8, 8).sum(dim=(1, 3)).abs().median().item()
+            err = (out - ref).abs().max().item()
+            if not (out == out[0]).all():
+                raise AssertionError(f"probe {name} d={d}: the blocks disagree with each other")
+            if not err <= limit:
+                raise AssertionError(f"probe {name} d={d} disagrees with its plain version: {err} > {limit}")
+            if not tile > limit:
+                raise AssertionError(f"probe {name} d={d}: the limit {limit} would pass a dropped piece ({tile})")
+            worst_abs, worst_ratio = max(worst_abs, err), max(worst_ratio, err / limit)
+            one_ms = cuda_ms(lambda: bench.probe_reference(a, b, contract, 1))
+            plain_ms += one_ms
+            emit("kernel", name="mma_probe", layout=name, d=d, shape=[list(a.shape), list(b.shape)], blocks=blocks,
+                 max_abs_err=err, tol=limit, kernel_vs_f64=abs(out[0].item() - exact),
+                 plain_vs_f64=abs(ref[0].item() - exact), dropped_piece_over_tol=tile / limit, plain_ms_per_iter=one_ms)
+    bench.probe.launches = 0
+    table = bench.main()
+    launches = bench.probe.launches
+    rows = [r for per_d in table.values() for r in per_d.values()]
+    if launches == 0 or len(rows) != 12:
+        raise AssertionError(f"the probe's entry point launched its kernel {launches} times over {len(rows)} layouts")
+    bad = {k: r["linearity"] for per_d in table.values() for k, r in per_d.items() if not 0.8 < r["linearity"] < 1.25}
+    if bad:
+        raise AssertionError(f"the probe's time is not linear in iters: {bad}")
+    emit("probe", blocks=blocks, launches=launches, table=table, card=card_line(),
+         unit="us_per_iter: one 512x512 product per SM on all SMs at once; tflops: the whole card")
+    return {"launches": launches, "max_abs_err": worst_abs, "max_err_over_limit": worst_ratio,
+            "ms": sum(r["us_per_iter"] for r in rows) / 1e3, "plain_ms": plain_ms,
+            "bound_ms": sum(r["bound_us_per_iter"] for r in rows) / 1e3}
+
+
 def phase_tiny():
-    """Tiny pipeline invert + P2P edit, and null-text inversion (4 steps, 2
-    inner iterations) + the edit with its embeddings, on the card (f32
-    kernels, head dims 16 and 32) against the same weights on the CPU (plain
-    versions)."""
+    """Tiny pipelines on the card (f32 kernels, head dims 16 and 32) against
+    the same weights on the CPU (plain versions). SD: invert + P2P edit with
+    LocalBlend, and null-text inversion (4 steps, 2 inner iterations) + the
+    edit with its embeddings. SDXL: invert + P2P edit, and XL null-text
+    inversion with and without the checkpointed UNet."""
     from image_editing_framework_torch.core.config import NTIConfig, P2PConfig, SamplerConfig
     from image_editing_framework_torch.inversion.ddim import ddim_invert
     from image_editing_framework_torch.inversion.nti import null_text_inversion
@@ -360,30 +442,42 @@ def phase_tiny():
 
     torch.backends.cudnn.allow_tf32 = False
     prompts = ["a cat sitting on the grass", "a dog sitting on the grass"]
-    cfg, sampler = P2PConfig(blend_words=(("cat",), ("dog",))), SamplerConfig(height=32, width=32)
+    sampler = SamplerConfig(height=32, width=32)
     image = (np.random.RandomState(0).rand(32, 32, 3) * 255).astype(np.uint8)
-    results, nti_results = [], []
-    cpu = tiny_pipeline(num_steps=4, device="cpu")
-    gpu = tiny_pipeline(num_steps=4, device="cuda")
-    for name in ("unet", "vae", "text_encoder"):
-        state = {k: v.numpy() for k, v in getattr(cpu, name).state_dict().items()}
-        load_weights(getattr(gpu, name), state)
-    for pipe in (cpu, gpu):
-        last, traj, context, _ = ddim_invert(pipe, pipe.image2latent(image), prompts[0])
-        lat0, ctx, ctrl, blend = p2p_setup(pipe, prompts, last, cfg, sampler)
-        results.append(denoise(pipe, lat0, ctx, ctrl, blend=blend).cpu())
-        uncond_seq = null_text_inversion(pipe, traj, context, NTIConfig(num_inner_steps=2))
-        final = denoise(pipe, lat0, ctx, ctrl, blend=blend, uncond_seq=uncond_seq)
-        nti_results.append((uncond_seq.cpu(), final.cpu()))
+    for model_type, cfg in (("sd", P2PConfig(blend_words=(("cat",), ("dog",)))), ("xl", P2PConfig())):
+        cpu = tiny_pipeline(num_steps=4, model_type=model_type, device="cpu")
+        gpu = tiny_pipeline(num_steps=4, model_type=model_type, device="cuda")
+        for name in ("unet", "vae", "text_encoder") + (("text_encoder_2",) if model_type == "xl" else ()):
+            state = {k: v.numpy() for k, v in getattr(cpu, name).state_dict().items()}
+            load_weights(getattr(gpu, name), state)
+        results = []
+        for pipe in (cpu, gpu):
+            last, traj, context, added1 = ddim_invert(pipe, pipe.image2latent(image), prompts[0])
+            lat0, ctx, ctrl, blend, added = p2p_setup(pipe, prompts, last, cfg, sampler)
+            edit = denoise(pipe, lat0, ctx, ctrl, blend=blend, added_cond=added)
+            if model_type == "xl":
+                # XL's NTI starts on both devices from the CPU's inversion, so
+                # that the embeddings compare the NTI programs alone
+                if pipe is cpu:
+                    nti_in = (traj, context, added1)
+                traj, context = (x.to(pipe.device) for x in nti_in[:2])
+                added1 = {k: v.to(pipe.device) for k, v in nti_in[2].items()}
+            seqs = [null_text_inversion(pipe, traj, context, NTIConfig(num_inner_steps=2, remat=remat),
+                                        added_cond=added1)
+                    for remat in ((False, True) if model_type == "xl" else (False,))]
+            final = denoise(pipe, lat0, ctx, ctrl, blend=blend, uncond_seq=seqs[0], added_cond=added)
+            results.append([x.cpu() for x in (edit, final, *seqs)])
+        errs = [(a - b).abs().max().item() for a, b in zip(*results)]
+        # embeddings: a tenth of one Adam step at lr 1e-2, as the CPU parity tests
+        if not all(e < 1e-3 for e in errs):
+            raise AssertionError(f"tiny {model_type} pipeline on the card disagrees with the CPU: edit, NTI edit, "
+                                 f"NTI embeddings (plain, checkpointed) {errs}")
+        fields = dict(max_abs_err=errs[0], nti_edit_max_abs_err=errs[1], nti_embedding_max_abs_err=errs[2], tol=1e-3)
+        if model_type == "xl":
+            fields.update(nti_embedding_remat_max_abs_err=errs[3],
+                          remat_bitwise_on_card=bool(torch.equal(results[1][2], results[1][3])))
+        emit("tiny" if model_type == "sd" else "xl_tiny", **fields)
     torch.backends.cudnn.allow_tf32 = True
-    err = (results[0] - results[1]).abs().max().item()
-    # embeddings: a tenth of one Adam step (lr 1e-2), as the CPU parity tests
-    emb_err = (nti_results[0][0] - nti_results[1][0]).abs().max().item()
-    nti_err = (nti_results[0][1] - nti_results[1][1]).abs().max().item()
-    if not (err < 1e-3 and nti_err < 1e-3 and emb_err < 1e-3):
-        raise AssertionError(f"tiny pipeline on the card disagrees with the CPU: edit {err}, "
-                             f"NTI embeddings {emb_err}, NTI edit {nti_err}")
-    emit("tiny", max_abs_err=err, nti_embedding_max_abs_err=emb_err, nti_edit_max_abs_err=nti_err, tol=1e-3)
 
 
 def timed(fn):
@@ -408,73 +502,106 @@ def reset_launch_counts():
     fa.flash_attention.launches = fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
 
 
-def phase_main_path():
-    """SD1.5 512² bf16 real-image P2P edit through the user entry points."""
+# per model: (sd_version, name, image side, context width)
+MODELS = {"sd": ("1.5", "SD1.5", 512, 768), "xl": ("xl", "SDXL base", 1024, 2048)}
+PROMPTS = ["a photo of a cat sitting on the grass", "a photo of a dog sitting on the grass"]
+
+
+def phase_main_path(model):
+    """Real-image P2P edit through the user entry points, bf16: SD1.5 at
+    512² or SDXL at 1024² (whose decode is also made in tiles and compared
+    with the full frame)."""
     from image_editing_framework_torch.core.config import P2PConfig, SamplerConfig
     from image_editing_framework_torch.inversion.ddim import ddim_invert
+    from image_editing_framework_torch.methods import common
     from image_editing_framework_torch.methods.p2p import p2p_edit
     from image_editing_framework_torch.pipelines import random_pipeline
 
+    version, name, side, _ = MODELS[model]
     t0 = time.perf_counter()
-    pipe = random_pipeline("1.5", num_steps=STEPS, dtype=torch.bfloat16, seed=0, device="cuda")
+    pipe = random_pipeline(version, num_steps=STEPS, dtype=torch.bfloat16, seed=0, device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    image = (np.random.RandomState(0).rand(512, 512, 3) * 255).astype(np.uint8)
-    prompts = ["a photo of a cat sitting on the grass", "a photo of a dog sitting on the grass"]
+    image = (np.random.RandomState(0).rand(side, side, 3) * 255).astype(np.uint8)
     cfg = P2PConfig(edit_type="replace", blend_words=(("cat",), ("dog",)))
-    sampler = SamplerConfig(num_inference_steps=STEPS)
+    sampler = SamplerConfig(num_inference_steps=STEPS, height=side, width=side)
 
     # one UNet forward at the edit's CFG batch (for the kernel's share of
     # it) and at the inversion's batch 1
-    ctx = pipe.encode_prompts(prompts)[0]
-    lat4 = torch.randn(4, 64, 64, 4, device="cuda", dtype=torch.bfloat16)
-    unet_ms = cuda_ms(lambda: pipe.unet_apply(lat4, 501, ctx), min_ms=500.0)
-    unet_b1_ms = cuda_ms(lambda: pipe.unet_apply(lat4[:1], 501, ctx[2:3]), min_ms=500.0)
+    ctx, added = common.prepare_conditioning(pipe, PROMPTS, side, side)
+    added1 = None if added is None else {k: v[2:3] for k, v in added.items()}
+    lat4 = torch.randn(4, side // 8, side // 8, 4, device="cuda", dtype=torch.bfloat16)
+    unet_ms = cuda_ms(lambda: pipe.unet_apply(lat4, 501, ctx, None, added), min_ms=500.0)
+    unet_b1_ms = cuda_ms(lambda: pipe.unet_apply(lat4[:1], 501, ctx[2:3], None, added1), min_ms=500.0)
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     latent, encode_s = timed(lambda: pipe.image2latent(image))
-    (last, traj, _, _), invert_s = timed(lambda: ddim_invert(pipe, latent, prompts[0]))
-    images, edit_s = timed(lambda: p2p_edit(pipe, prompts, last, cfg, sampler))
+    (last, traj, _, _), invert_s = timed(lambda: ddim_invert(pipe, latent, PROMPTS[0]))
+    images, edit_s = timed(lambda: p2p_edit(pipe, PROMPTS, last, cfg, sampler))
     counts = launch_counts()
-    _, decode_s = timed(lambda: pipe.latent2image(last.expand(2, -1, -1, -1)))
+    full, decode_s = timed(lambda: pipe.latent2image(last.expand(2, -1, -1, -1)))
+    extra = {}
+    if model == "xl":
+        tiled, extra["decode_tiled_s"] = timed(lambda: pipe.latent2image(last.expand(2, -1, -1, -1), tile_latent=64))
+        diff = np.abs(tiled.astype(np.int32) - full.astype(np.int32))
+        extra.update(decode_tiled_median_abs_diff=float(np.median(diff)), decode_tiled_max_abs_diff=int(diff.max()))
+        # With random weights the decoder's mid-block attention and GroupNorm
+        # statistics make a tile's pixels depend on the whole tile, so the
+        # tiled image is reported beside the full frame and not held to it
+        # (the CPU tests hold decode_tiled to the JAX function). A tile that
+        # covers the latent must give the full frame's bits.
+        one_tile = pipe.latent2image(last.expand(2, -1, -1, -1), tile_latent=side // 8)
+        if tiled.shape != full.shape or tiled.std() == 0 or not np.array_equal(one_tile, full):
+            raise AssertionError(f"tiled decode {tiled.shape}: constant, misshapen, or one tile differs from the "
+                                 f"full frame: {extra}")
 
-    expected = (16 * (STEPS + STEPS), 0, 0)
+    sites = SITES[model]
+    expected = (sites * (STEPS + STEPS), 0, 0)
     if counts != expected:
-        raise AssertionError(f"(forward, dQ, dK/dV) kernels launched {counts} times on the main path, "
+        raise AssertionError(f"(forward, dQ, dK/dV) kernels launched {counts} times on the {model} main path, "
                              f"expected {expected}")
-    if images.shape != (2, 512, 512, 3) or images.dtype != np.uint8:
+    if images.shape != (2, side, side, 3) or images.dtype != np.uint8:
         raise AssertionError(f"edit output {images.shape} {images.dtype}")
     if not (torch.isfinite(traj.float()).all() and torch.isfinite(last.float()).all()):
         raise AssertionError("inversion produced non-finite latents")
     if images.std() == 0:
         raise AssertionError("edit output is constant")
-    emit("main_path", model="SD1.5 (random weights, seed 0)", resolution=512, dtype="bfloat16", steps=STEPS,
+    emit("main_path" if model == "sd" else "xl_main_path", model=f"{name} (random weights, seed 0)", resolution=side,
+         dtype="bfloat16", steps=STEPS, unet_params=sum(p.numel() for p in pipe.unet.parameters()),
          setup_s=setup_s, encode_s=encode_s, invert_s=invert_s, edit_and_decode_s=edit_s, decode_s=decode_s,
-         unet_forward_cfg4_ms=unet_ms, unet_forward_b1_ms=unet_b1_ms, flash_launches=counts[0],
-         bwd_launches=counts[1:], peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-         image_mean=float(images.mean()), card=card_line())
-    return counts[0], unet_ms, (pipe, lat4, ctx)
+         image_s=encode_s + invert_s + edit_s, unet_forward_cfg4_ms=unet_ms, unet_forward_b1_ms=unet_b1_ms,
+         flash_launches=counts[0], flash_launches_per_forward=sites, bwd_launches=counts[1:],
+         peak_gib=torch.cuda.max_memory_allocated() / 2**30, image_mean=float(images.mean()), card=card_line(),
+         **extra)
+    return counts[0], unet_ms, (pipe, lat4, ctx, added)
 
 
-def phase_nti_path(pipe):
-    """SD1.5 512² bf16 real-image P2P edit through null-text inversion, the
-    reference's default: ``cli.invert(..., "null-text")`` (DDIM inversion,
-    then 50 steps of up to 10 Adam iterations on the unconditional
-    embedding, default NTIConfig) and ``p2p_edit(uncond_seq=...)``."""
+def phase_nti_path(model, pipe):
+    """The same edit through null-text inversion, the reference's default:
+    ``cli.invert(..., "null-text", "p2p")`` (DDIM inversion, then 50 steps of
+    Adam iterations on the unconditional embedding) and
+    ``p2p_edit(uncond_seq=...)``. SD1.5 runs the default NTIConfig (up to 10
+    inner iterations per step). SDXL runs its own schedule (each step from
+    the original embedding, the negative pooled embeds on the unconditional
+    branch, the checkpointed UNet by the auto rule at latent side 128) at
+    full width with XL_INNER_STEPS inner iterations per step: with random
+    weights the early stop never fires, and 500 iterations of a
+    2.6B-parameter forward, recomputation and backward would take minutes."""
     from image_editing_framework_torch import cli
-    from image_editing_framework_torch.core.config import P2PConfig, SamplerConfig
+    from image_editing_framework_torch.core.config import NTIConfig, P2PConfig, SamplerConfig
     from image_editing_framework_torch.inversion import nti
     from image_editing_framework_torch.methods.p2p import p2p_edit
 
-    image = (np.random.RandomState(1).rand(512, 512, 3) * 255).astype(np.uint8)
-    prompts = ["a photo of a cat sitting on the grass", "a photo of a dog sitting on the grass"]
+    _, name, side, width = MODELS[model]
+    image = (np.random.RandomState(1).rand(side, side, 3) * 255).astype(np.uint8)
     cfg = P2PConfig(edit_type="replace", blend_words=(("cat",), ("dog",)))
-    sampler = SamplerConfig(num_inference_steps=STEPS)
+    sampler = SamplerConfig(num_inference_steps=STEPS, height=side, width=side)
+    inner_steps = XL_INNER_STEPS if model == "xl" else NTIConfig().num_inner_steps
 
     # the NTI call's own seconds and launch counts, read around it
     marks = {}
-    inner = cli.null_text_inversion
+    inner, config_for = cli.null_text_inversion, cli.nti_config_for
 
     def nti_read(*args, **kw):
         marks["before"] = launch_counts()
@@ -482,30 +609,43 @@ def phase_nti_path(pipe):
         marks["after"] = launch_counts()
         return out
 
+    def short_config(method, pipe):
+        c = config_for(method, pipe)
+        marks["config"] = NTIConfig(inner_steps, c.epsilon, c.base_lr, c.lr_decay_span, c.remat)
+        return marks["config"]
+
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     nti.null_text_inversion.inner_iterations = 0
-    cli.null_text_inversion = nti_read
+    cli.null_text_inversion, cli.nti_config_for = nti_read, short_config
     try:
-        (last, traj, uncond_seq), invert_s = timed(lambda: cli.invert(pipe, image, prompts[0], "null-text", "p2p"))
+        (last, traj, uncond_seq), invert_s = timed(lambda: cli.invert(pipe, image, PROMPTS[0], "null-text", "p2p"))
     finally:
-        cli.null_text_inversion = inner
-    images, edit_s = timed(lambda: p2p_edit(pipe, prompts, last, cfg, sampler, uncond_seq=uncond_seq))
+        cli.null_text_inversion, cli.nti_config_for = inner, config_for
+    images, edit_s = timed(lambda: p2p_edit(pipe, PROMPTS, last, cfg, sampler, uncond_seq=uncond_seq))
     counts = launch_counts()
     j = nti.null_text_inversion.inner_iterations
 
+    # Forward launches of NTI: per step one conditional and one final
+    # unconditional forward, and per inner iteration one forward, or two
+    # with the checkpointed UNet (every block's forward is run again in the
+    # backward pass). The backward kernels run at every site but the first.
+    sites, grad_sites = SITES[model], GRAD_SITES[model]
+    per_iteration = 2 * sites if model == "xl" else sites
     nti_counts = tuple(a - b for a, b in zip(marks["after"], marks["before"]))
-    if not STEPS <= j <= 10 * STEPS:
+    if not STEPS <= j <= inner_steps * STEPS:
         raise AssertionError(f"{j} inner iterations over {STEPS} steps")
-    if nti_counts != (16 * (2 * STEPS + j), GRAD_SITES * j, GRAD_SITES * j):
+    if nti_counts != (sites * 2 * STEPS + per_iteration * j, grad_sites * j, grad_sites * j):
         raise AssertionError(f"NTI launched (forward, dQ, dK/dV) {nti_counts} times; J = {j}")
-    if counts != (16 * (4 * STEPS + j), GRAD_SITES * j, GRAD_SITES * j):
+    if counts != (sites * 4 * STEPS + per_iteration * j, grad_sites * j, grad_sites * j):
         raise AssertionError(f"the NTI path launched (forward, dQ, dK/dV) {counts} times; J = {j}")
-    if uncond_seq.shape != (STEPS, 77, 768) or not torch.isfinite(uncond_seq).all():
+    if uncond_seq.shape != (STEPS, 77, width) or not torch.isfinite(uncond_seq).all():
         raise AssertionError(f"NTI embeddings {tuple(uncond_seq.shape)} not finite or misshapen")
-    if images.shape != (2, 512, 512, 3) or images.dtype != np.uint8 or images.std() == 0:
+    if images.shape != (2, side, side, 3) or images.dtype != np.uint8 or images.std() == 0:
         raise AssertionError(f"edit output {images.shape} {images.dtype} constant or misshapen")
-    emit("nti_path", model="SD1.5 (random weights, seed 0)", resolution=512, dtype="bfloat16", steps=STEPS,
+    emit("nti_path" if model == "sd" else "xl_nti_path", model=f"{name} (random weights, seed 0)", resolution=side,
+         dtype="bfloat16", steps=STEPS, num_inner_steps=inner_steps, base_lr=marks["config"].base_lr,
+         lr_decay_span=marks["config"].lr_decay_span, checkpointed_unet=model == "xl",
          invert_s=invert_s - marks["nti_s"], nti_s=marks["nti_s"], edit_and_decode_s=edit_s,
          image_s=invert_s + edit_s, nti_share=marks["nti_s"] / (invert_s + edit_s), inner_iterations=j,
          nti_launches=nti_counts, launches=counts, uncond_moved=float((uncond_seq[-1] - uncond_seq[0]).abs().max()),
@@ -513,13 +653,14 @@ def phase_nti_path(pipe):
     return counts
 
 
-def phase_profile(pipe, lat4, ctx):
+def phase_profile(model, pipe, lat4, ctx, added):
     """Device busy time of one UNet forward under torch.profiler (the sum of
     kernel durations on the one stream), against its unprofiled time."""
     from torch.profiler import ProfilerActivity, profile
 
-    for batch, lat, c in ((4, lat4, ctx), (1, lat4[:1], ctx[2:3])):
-        forward = lambda: pipe.unet_apply(lat, 501, c)  # noqa: E731
+    added1 = None if added is None else {k: v[2:3] for k, v in added.items()}
+    for batch, lat, c, add in ((4, lat4, ctx, added), (1, lat4[:1], ctx[2:3], added1)):
+        forward = lambda: pipe.unet_apply(lat, 501, c, None, add)  # noqa: E731
         wall_ms = cuda_ms(forward, min_ms=500.0)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(PROFILE_REPS):
@@ -531,10 +672,41 @@ def phase_profile(pipe, lat4, ctx):
             raise AssertionError("the profiler recorded no device time")
         flash_ms = sum(e.self_device_time_total for e in kernels if "flash_fwd" in e.key) / PROFILE_REPS / 1e3
         top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
-        emit("profile", batch=batch, wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
-             launches_per_forward=sum(e.count for e in kernels) / PROFILE_REPS,
-             flash_share_of_busy=flash_ms / busy_ms,
+        emit("profile" if model == "sd" else "xl_profile", batch=batch, wall_ms=wall_ms, device_busy_ms=busy_ms,
+             idle_share=1.0 - busy_ms / wall_ms, launches_per_forward=sum(e.count for e in kernels) / PROFILE_REPS,
+             flash_ms=flash_ms, flash_share_of_busy=flash_ms / busy_ms,
              top=[[e.key[:60], e.self_device_time_total / PROFILE_REPS / 1e3] for e in top])
+
+
+def phase_refiner():
+    """img2img through the SDXL refiner at full width, 1024², bf16: strength
+    0.3 of a 50-step schedule (15 UNet forwards at CFG batch 2), noise from
+    an explicit generator."""
+    from image_editing_framework_torch.methods.img2img import img2img
+    from image_editing_framework_torch.pipelines import random_pipeline
+
+    t0 = time.perf_counter()
+    pipe = random_pipeline("xl-refiner", num_steps=STEPS, dtype=torch.bfloat16, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    image = (np.random.RandomState(2).rand(1024, 1024, 3) * 255).astype(np.uint8)
+    sites = pipe.unet.config.num_transformer_blocks
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out, refine_s = timed(lambda: img2img(pipe, image, PROMPTS[0], strength=0.3,
+                                          generator=torch.Generator(device="cuda").manual_seed(0)))
+    counts = launch_counts()
+    start = int(STEPS * (1.0 - 0.3))
+    if counts != (sites * (STEPS - start), 0, 0):
+        raise AssertionError(f"the refiner launched (forward, dQ, dK/dV) {counts} times, "
+                             f"expected {sites} x {STEPS - start} forward")
+    if out.shape != (1, 1024, 1024, 3) or out.dtype != np.uint8 or out.std() == 0:
+        raise AssertionError(f"refiner output {out.shape} {out.dtype} constant or misshapen")
+    emit("refiner", model="SDXL refiner (random weights, seed 0)", resolution=1024, dtype="bfloat16", strength=0.3,
+         unet_params=sum(p.numel() for p in pipe.unet.parameters()), unet_forwards=STEPS - start, setup_s=setup_s,
+         refine_and_decode_s=refine_s, flash_launches=counts[0], flash_launches_per_forward=sites,
+         peak_gib=torch.cuda.max_memory_allocated() / 2**30, image_mean=float(out.mean()), card=card_line())
+    return counts[0]
 
 
 def main() -> int:
@@ -554,37 +726,62 @@ def main() -> int:
     run("device", phase_device)
     worst, sums = run("kernels", phase_kernels, gen)
     bwd_worst, bwd_sums = run("bwd_kernels", phase_bwd_kernels, gen)
+    probe = run("probe", phase_probe)
     run("tiny", phase_tiny)
-    launches, unet_ms, profile_args = run("main_path", phase_main_path)
-    _, dq_launches, dkv_launches = run("nti_path", phase_nti_path, profile_args[0])
-    run("profile", phase_profile, *profile_args)
+    launches, unet_ms, bwd_launches = {}, {}, {}
+    for model, prefix in (("sd", ""), ("xl", "xl_")):
+        launches[model], unet_ms[model], profile_args = run(prefix + "main_path", phase_main_path, model)
+        bwd_launches[model] = run(prefix + "nti_path", phase_nti_path, model, profile_args[0])[1:]
+        run(prefix + "profile", phase_profile, model, *profile_args)
+        del profile_args  # the next model needs the card's memory
+        torch.cuda.empty_cache()
+    launches["refiner"] = run("refiner", phase_refiner)
     emit("seconds", **seconds)
-    emit("share", flash_ms_per_cfg4_forward=sums["ms"], unet_forward_cfg4_ms=unet_ms,
-         flash_share=sums["ms"] / unet_ms,
-         bwd_ms_per_inner_iteration=bwd_sums["all"]["ms"], bwd_bound_ms_per_inner_iteration=bwd_sums["all"]["bound_ms"],
-         bwd_bound_by=bwd_sums["all"]["bound_by"], sdpa_bwd_ms_per_inner_iteration=bwd_sums["all"]["library_ms"])
-    work = "the 15 self-attention sites an SD1.5 512² NTI gradient flows through, batch 1, bf16 (one inner iteration)"
+    for model in MODELS:
+        fwd, bwd = sums[model], bwd_sums[model]["all"]
+        emit("share", model=model, flash_ms_per_cfg4_forward=fwd["ms"], unet_forward_cfg4_ms=unet_ms[model],
+             flash_share=fwd["ms"] / unet_ms[model], flash_bound_ms_per_cfg4_forward=fwd["bound_ms"],
+             sdpa_ms_per_cfg4_forward=fwd["library_ms"], bwd_ms_per_inner_iteration=bwd["ms"],
+             bwd_bound_ms_per_inner_iteration=bwd["bound_ms"], bwd_bound_by=bwd["bound_by"],
+             sdpa_bwd_ms_per_inner_iteration=bwd["library_ms"])
+
+    def at(part):
+        return {key: part[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+
+    tpu = "image_editing_framework_tpu/ops/flash_attention.py"
+    work = {"sd": "the 15 self-attention sites an SD1.5 512² NTI gradient flows through, batch 1, bf16 (one inner "
+                  "iteration)",
+            "xl": "the 69 sites an SDXL 1024² NTI gradient flows through, batch 1, bf16 (one inner iteration)"}
     bwd = [{
         "name": f"flash_bwd_{kernel}", "route": "cuda", "source": "image_editing_framework_torch/csrc/flash_bwd.cu",
-        "replaces": f"image_editing_framework_tpu/ops/flash_attention.py:{line}",
-        "also_replaces": f"image_editing_framework_tpu/ops/flash_attention.py:{line_t}",
-        "launches": n, "max_abs_err": bwd_worst[torch.bfloat16][kernel],
-        "max_abs_err_f32": bwd_worst[torch.float32][kernel],
-        "ms": bwd_sums[kernel]["ms"], "plain_ms": bwd_sums[kernel]["plain_ms"],
-        "bound_ms": bwd_sums[kernel]["bound_ms"], "bound_by": bwd_sums[kernel]["bound_by"],
-        "library_ms": bwd_sums[kernel]["library_ms"], "work": work,
+        "replaces": f"{tpu}:{line}", "also_replaces": f"{tpu}:{line_t}",
+        "launches": sum(counts[i] for counts in bwd_launches.values()),
+        "launches_by_path": {"nti_path": bwd_launches["sd"][i], "xl_nti_path": bwd_launches["xl"][i]},
+        "max_abs_err": bwd_worst[torch.bfloat16][kernel], "max_abs_err_f32": bwd_worst[torch.float32][kernel],
+        **at(bwd_sums["sd"][kernel]), "work": work["sd"], "at_xl": dict(at(bwd_sums["xl"][kernel]), work=work["xl"]),
         "plain_and_library": "the whole backward (dq, dk, dv): the plain version and SDPA's backward",
-    } for kernel, line, line_t, n in (("dq", 387, 540, dq_launches), ("dkv", 430, 593, dkv_launches))]
-    kernel = {
+    } for i, (kernel, line, line_t) in enumerate((("dq", 387, 540), ("dkv", 430, 593)))]
+    fwd = {
         "name": "flash_fwd", "route": "cuda", "source": "image_editing_framework_torch/csrc/flash_fwd.cu",
-        "replaces": "image_editing_framework_tpu/ops/flash_attention.py:76",
-        "also_replaces": "image_editing_framework_tpu/ops/flash_attention.py:205",
-        "launches": launches, "max_abs_err": worst[torch.bfloat16], "max_abs_err_f32": worst[torch.float32],
-        "ms": sums["ms"], "plain_ms": sums["plain_ms"], "bound_ms": sums["bound_ms"], "bound_by": sums["bound_by"],
-        "library_ms": sums["library_ms"],
-        "work": "the 16 self-attention sites of one SD1.5 512² UNet forward at CFG batch 4, bf16",
+        "replaces": f"{tpu}:76", "also_replaces": f"{tpu}:205",
+        "launches": sum(launches.values()),
+        "launches_by_path": {"main_path": launches["sd"], "xl_main_path": launches["xl"],
+                             "refiner": launches["refiner"]},
+        "max_abs_err": worst[torch.bfloat16], "max_abs_err_f32": worst[torch.float32],
+        **at(sums["sd"]), "work": "the 16 self-attention sites of one SD1.5 512² UNet forward at CFG batch 4, bf16",
+        "at_xl": dict(at(sums["xl"]), work="the 70 sites of one SDXL 1024² UNet forward at CFG batch 4, bf16"),
     }
-    print(json.dumps({"kernels": [kernel] + bwd}))
+    mma_probe = {
+        "name": "mma_probe", "route": "cuda", "source": "image_editing_framework_torch/csrc/mma_probe.cu",
+        "replaces": "tools/bench_attn_layouts.py:57", "launches": probe["launches"],
+        "max_abs_err": probe["max_abs_err"], "max_err_over_limit": probe["max_err_over_limit"],
+        "ms": probe["ms"], "plain_ms": probe["plain_ms"], "bound_ms": probe["bound_ms"], "bound_by": "operations",
+        "library_ms": None,
+        "work": "one iteration (a 512 x 512 product on every SM at once) of each of the 4 layouts at d = 40, 64, "
+                "128; plain_ms: the plain version's one iteration of each, one product",
+        "library": "none: no PyTorch call computes a looped product that stores nothing",
+    }
+    print(json.dumps({"kernels": [fwd] + bwd + [mma_probe]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

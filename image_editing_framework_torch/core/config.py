@@ -59,7 +59,6 @@ class NTIConfig:
     epsilon: float = 1e-5
     base_lr: float = 1e-2
     lr_decay_span: float = 100.0
-    # Checkpointed UNet for the inner Adam gradients. None = auto: off on
-    # the SD path (on for XL at latent side >= 128 in the JAX package, which
-    # the XL slice brings); True is refused until then.
+    # Checkpointed UNet for the inner Adam gradients. None = auto
+    # (methods/common.py grad_unet: on for XL at latent side >= 128).
     remat: Optional[bool] = None

@@ -116,3 +116,9 @@ def ddim_reverse_step(sched: DDIMSchedule, eps: torch.Tensor, step_index: int, s
 def inversion_timestep(sched: DDIMSchedule, step_index: int) -> int:
     """Timestep fed to the UNet at inversion iteration ``step_index``."""
     return int(sched.timesteps[sched.num_steps - 1 - step_index])
+
+
+def add_noise(sched: DDIMSchedule, x0: torch.Tensor, noise: torch.Tensor, t: int) -> torch.Tensor:
+    """Forward diffusion q(x_t | x_0) at timestep ``t``."""
+    alpha = sched.alphas_cumprod[t].to(x0.dtype)
+    return torch.sqrt(alpha).item() * x0 + torch.sqrt(1.0 - alpha).item() * noise

@@ -16,12 +16,12 @@ from image_editing_framework_torch.core.scheduler import DDIMSchedule, ddim_reve
 
 
 @torch.no_grad()
-def _invert_scan(unet, sched: DDIMSchedule, latent: torch.Tensor, cond_context: torch.Tensor):
+def _invert_scan(unet, sched: DDIMSchedule, latent: torch.Tensor, cond_context: torch.Tensor, added_cond=None):
     """latent (B, h, w, 4), cond_context (B, 77, D) -> (last, trajectory (S+1, B, h, w, 4))."""
     lat = latent
     traj = [latent]
     for i in range(sched.num_steps):
-        eps, _ = unet(lat, inversion_timestep(sched, i), cond_context)
+        eps, _ = unet(lat, inversion_timestep(sched, i), cond_context, None, added_cond)
         lat = ddim_reverse_step(sched, eps, i, lat)
         traj.append(lat)
     return lat, torch.stack(traj)
@@ -35,8 +35,19 @@ def ddim_invert(
     Returns (final_noised_latent, trajectory (S+1,B,...), context (2,77,D),
     added_cond) — the context includes the uncond half for downstream NTI,
     mirroring the reference's get_context (p2p/inversion/ddim.py:43-57).
-    ``added_cond`` is None on the SD path.
+    ``added_cond`` is the batch-1 conditioning the inversion itself used
+    (text_embeds + time_ids for XL, None for SD), which callers hand straight
+    to null_text_inversion. For XL it also carries ``uncond_text_embeds``
+    (the negative pooled embeds): NTI evaluates its unconditional branch
+    with those (masactrl/inversion/nti.py:59,75); the inversion is
+    conditional-only and does not see the extra key.
     """
-    context, _ = pipe.encode_prompts([prompt])
-    last, traj = _invert_scan(pipe.unet, pipe.scheduler, latent, context[1:])
-    return last, traj, context, None
+    context, added = pipe.encode_prompts([prompt])
+    added_cond = None
+    if pipe.model_type == "xl":
+        h, w = latent.shape[1] * 8, latent.shape[2] * 8
+        added_cond = {"text_embeds": added["text_embeds"][1:], "time_ids": pipe.add_time_ids(h, w, 1)}
+    last, traj = _invert_scan(pipe.unet, pipe.scheduler, latent, context[1:], added_cond)
+    if added_cond is not None:
+        added_cond = dict(added_cond, uncond_text_embeds=added["text_embeds"][:1])
+    return last, traj, context, added_cond

@@ -17,25 +17,35 @@ in f32, as JAX forms them.
 The SD variant carries the optimised embedding into the next step
 (nti.py:15 reuses the loop variable); ``reset_each_step`` restarts every step
 from the original embedding, as SDXL's variant does (nti.py:61). The batched
-variant (``null_text_inversion_batch``) and SDXL's added-cond split
-(``_split_added``) arrive with the batched-evaluation and SDXL slices.
+variant (``null_text_inversion_batch``) arrives with the batched-evaluation
+slice.
+
+XL added conditions (masactrl/inversion/nti.py:58-66): the conditional UNet
+evaluation takes the prompt's pooled embeds, every unconditional evaluation
+the negative pooled embeds; the time ids are shared. ``ddim_invert`` returns
+one dict with the extra key ``uncond_text_embeds``; ``_split_added`` makes
+the pair from it.
 
 Gradients reach the embedding through the UNet's cross-attention (plain
 torch) and through every self-attention site downstream of the first
 cross-attention, where the flash kernel's autograd Function runs the
 backward kernels. The modules stay frozen, so the embedding is the only
-leaf that asks for a gradient.
+leaf that asks for a gradient. At XL 1024² the UNet is taken with its
+transformer blocks checkpointed (``methods/common.py grad_unet``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from image_editing_framework_torch.core.config import NTIConfig
 from image_editing_framework_torch.core.scheduler import DDIMSchedule, ddim_step
+from image_editing_framework_torch.methods.common import grad_unet
+
+Added = Optional[Dict[str, torch.Tensor]]
 
 _F32 = np.float32
 
@@ -57,12 +67,13 @@ def nti_loss(
     eps_c: torch.Tensor,
     uncond: torch.Tensor,
     guidance_scale: float,
+    added_uncond: Added = None,
 ) -> torch.Tensor:
     """Step i's loss (JAX ``loss_fn``, nti.py:86-90): the mean squared
     distance of the guided DDIM step from ``latent`` to ``target``, with
-    ``uncond`` as the unconditional embedding and ``eps_c`` the conditional
-    noise prediction."""
-    eps_u = unet(latent, int(sched.timesteps[i]), uncond)[0]
+    ``uncond`` as the unconditional embedding (and ``added_uncond`` its XL
+    added conditions) and ``eps_c`` the conditional noise prediction."""
+    eps_u = unet(latent, int(sched.timesteps[i]), uncond, None, added_uncond)[0]
     prev = ddim_step(sched, _cfg_mix(eps_u, eps_c, guidance_scale), i, latent)
     return torch.mean((prev - target) ** 2)
 
@@ -76,9 +87,13 @@ def _nti_loop(
     guidance_scale: float,
     cfg: NTIConfig,
     reset_each_step: bool,
+    added_cond: Added = None,
+    added_uncond: Added = None,
 ) -> torch.Tensor:
     """The per-step optimisation (JAX ``_nti_scan``); returns (S, 77, D) f32."""
     s = sched.num_steps
+    if added_uncond is None:
+        added_uncond = added_cond
     # NTI optimises in f32 whatever the pipeline's dtype (the reference
     # optimises an f32 embedding against f32 latents); the UNet casts its
     # inputs to its own dtype.
@@ -94,12 +109,12 @@ def _nti_loop(
         lr = float(_F32(cfg.base_lr) * (_F32(1.0) - _F32(i) / _F32(cfg.lr_decay_span)))
         thresh = float(_F32(cfg.epsilon) + _F32(i) * _F32(2e-5))
         with torch.no_grad():
-            eps_c = unet(latent_cur, t, cond_emb)[0]
+            eps_c = unet(latent_cur, t, cond_emb, None, added_cond)[0]
 
         def loss_and_grad(u):
             u = u.detach().requires_grad_(True)
             with torch.enable_grad():
-                loss = nti_loss(unet, sched, i, latent_cur, target, eps_c, u, gs)
+                loss = nti_loss(unet, sched, i, latent_cur, target, eps_c, u, gs, added_uncond)
                 (g,) = torch.autograd.grad(loss, u)
             return loss.detach(), g
 
@@ -121,11 +136,22 @@ def _nti_loop(
 
         # Advance the latent with the optimised embedding (nti.py:37-43).
         with torch.no_grad():
-            eps_u = unet(latent_cur, t, u)[0]
+            eps_u = unet(latent_cur, t, u, None, added_uncond)[0]
             latent_cur = ddim_step(sched, _cfg_mix(eps_u, eps_c, gs), i, latent_cur)
         u_carry = u
         seq.append(u[0])
     return torch.stack(seq)
+
+
+def _split_added(added_cond: Added) -> Tuple[Added, Added]:
+    """Split an added-cond dict carrying ``uncond_text_embeds`` into the
+    (cond, uncond) pair the XL NTI evaluates its two branches with
+    (masactrl/inversion/nti.py:58-59; the time ids are shared, :57)."""
+    if added_cond is None or "uncond_text_embeds" not in added_cond:
+        return added_cond, None
+    cond = {"text_embeds": added_cond["text_embeds"], "time_ids": added_cond["time_ids"]}
+    uncond = {"text_embeds": added_cond["uncond_text_embeds"], "time_ids": added_cond["time_ids"]}
+    return cond, uncond
 
 
 def null_text_inversion(
@@ -134,15 +160,15 @@ def null_text_inversion(
     context: torch.Tensor,  # (2, 77, D) [uncond, cond]
     cfg: NTIConfig = NTIConfig(),
     guidance_scale: float = 7.5,
-    added_cond: Optional[dict] = None,
+    added_cond: Added = None,
 ) -> torch.Tensor:
-    """Returns the per-step optimised unconditional embeddings (S, 77, D) f32."""
-    if added_cond is not None or pipe.model_type != "sd":
-        raise NotImplementedError("null-text inversion is ported for the SD path only so far")
-    if cfg.remat:
-        raise NotImplementedError("remat=True (a checkpointed UNet) arrives with the SDXL slice")
-    return _nti_loop(pipe.unet, pipe.scheduler, trajectory, context[1:], context[:1], guidance_scale, cfg,
-                     reset_each_step=False)
+    """Returns the per-step optimised unconditional embeddings (S, 77, D) f32.
+    ``added_cond``: XL's batch-1 added conditions, as ``ddim_invert`` returns
+    them."""
+    added_cond, added_uncond = _split_added(added_cond)
+    unet = grad_unet(pipe, trajectory.shape[-3], cfg.remat)
+    return _nti_loop(unet, pipe.scheduler, trajectory, context[1:], context[:1], guidance_scale, cfg,
+                     reset_each_step=pipe.model_type == "xl", added_cond=added_cond, added_uncond=added_uncond)
 
 
 # Inner Adam iterations run since the count was last set to 0.

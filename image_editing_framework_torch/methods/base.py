@@ -75,6 +75,7 @@ def _denoise_scan(
     store_mode: Optional[str],  # None | 'sum' (LocalBlend cross-step sum)
     uncond_seq: Optional[torch.Tensor] = None,  # (S, 77, D) NTI embeddings
     source_replay: Optional[torch.Tensor] = None,  # (S+1, 1, h, w, 4) inversion trajectory
+    added_cond: Optional[Dict[str, torch.Tensor]] = None,  # dict of (2P, ...), SDXL
 ) -> torch.Tensor:
     lat = latents
     steps = sched.num_steps
@@ -88,7 +89,7 @@ def _denoise_scan(
             # trajectory (masactrl/model/sd_utils.py:95-99)
             lat = torch.cat([source_replay[steps - i].to(lat.dtype), lat[1:]], dim=0)
         ctx = _step_context(context, uncond_seq, i)
-        eps, rec = unet(torch.cat([lat, lat]), int(sched.timesteps[i]), ctx, step_ctrl)
+        eps, rec = unet(torch.cat([lat, lat]), int(sched.timesteps[i]), ctx, step_ctrl, added_cond)
         eps_u, eps_c = eps.chunk(2)
         lat = ddim_step(sched, eps_u + guidance_scale * (eps_c - eps_u), i, lat)
         if store_mode == "sum":
@@ -107,15 +108,16 @@ def denoise(
     blend: Optional[LocalBlend] = None,
     uncond_seq: Optional[torch.Tensor] = None,
     source_replay: Optional[torch.Tensor] = None,
+    added_cond: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Run the full DDIM denoising loop; returns the final (P, h, w, 4) latents.
 
     ``uncond_seq`` (S, 77, D): per-step unconditional embeddings from
     null-text inversion. ``source_replay`` (S+1, 1, h, w, 4): the inversion
     trajectory, which the source branch replays at every step (direct
-    inversion)."""
+    inversion). ``added_cond``: SDXL's (2P, ...) added conditions."""
     if ctrl is None:
         ctrl = NoneControl()
     store_mode = "sum" if blend is not None else None
     return _denoise_scan(pipe.unet, pipe.scheduler, latents, context, ctrl, guidance_scale, blend, store_mode,
-                         uncond_seq, source_replay)
+                         uncond_seq, source_replay, added_cond)

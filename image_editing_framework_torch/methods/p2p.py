@@ -22,7 +22,7 @@ from image_editing_framework_torch.ops.controls import build_p2p_control
 
 def p2p_setup(pipe, prompts: Sequence[str], latent: torch.Tensor, cfg: P2PConfig, sampler: SamplerConfig):
     """Everything ``p2p_edit`` hands the denoise loop: (start latents,
-    context, control, LocalBlend or None)."""
+    context, control, LocalBlend or None, added conditions or None)."""
     p = len(prompts)
     blend = None
     record_blend = cfg.blend_words is not None
@@ -30,8 +30,8 @@ def p2p_setup(pipe, prompts: Sequence[str], latent: torch.Tensor, cfg: P2PConfig
         alpha = schedules.blend_alpha_layers(prompts, cfg.blend_words, pipe.tokenizer)
         blend = LocalBlend(torch.as_tensor(alpha, device=pipe.device), threshold=cfg.blend_threshold)
     ctrl = build_p2p_control(prompts, pipe.tokenizer, pipe.scheduler.num_steps, cfg, record_blend, pipe.device)
-    context, _ = common.prepare_conditioning(pipe, prompts, sampler.height, sampler.width)
-    return common.expand_latent(latent, p), context, ctrl, blend
+    context, added_cond = common.prepare_conditioning(pipe, prompts, sampler.height, sampler.width)
+    return common.expand_latent(latent, p), context, ctrl, blend, added_cond
 
 
 def p2p_edit(
@@ -45,7 +45,7 @@ def p2p_edit(
 ) -> np.ndarray:
     """Run a P2P edit; returns uint8 images (P, H, W, 3) where row 0 is the
     source-branch reconstruction (the reference's inversion.png)."""
-    latents0, context, ctrl, blend = p2p_setup(pipe, prompts, latent, cfg, sampler)
+    latents0, context, ctrl, blend, added_cond = p2p_setup(pipe, prompts, latent, cfg, sampler)
     final = denoise(pipe, latents0, context, ctrl, guidance_scale=sampler.guidance_scale, blend=blend,
-                    uncond_seq=uncond_seq, source_replay=source_replay)
+                    uncond_seq=uncond_seq, source_replay=source_replay, added_cond=added_cond)
     return pipe.latent2image(final)

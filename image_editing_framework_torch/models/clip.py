@@ -1,9 +1,12 @@
-"""CLIP text encoder (OpenAI CLIP ViT-L/14 for SD1.x).
+"""CLIP text encoders (OpenAI CLIP ViT-L/14, OpenCLIP ViT-H / bigG).
 
 Counterpart of ``CLIPTextModel`` in ``image_editing_framework_tpu/models/clip.py``.
 Module and parameter names follow transformers' ``CLIPTextModel``, so
 ``state_dict()`` keys are its keys. The attention (77 tokens, causal) is
-plain tensor code, as in JAX.
+plain tensor code, as in JAX. Output conventions: SD1.x and SD2.1 take the
+last hidden state (CLIP-L with quick_gelu; a 23-layer OpenCLIP-H with exact
+gelu); SDXL takes CLIP-L's and bigG's penultimate hidden states side by side
+and bigG's projected pooled embedding.
 """
 
 from __future__ import annotations
@@ -30,7 +33,15 @@ class CLIPTextConfig:
     projection_dim: Optional[int] = None
 
 
-CLIP_VIT_L = CLIPTextConfig()  # SD1.x text_encoder
+CLIP_VIT_L = CLIPTextConfig()  # SD1.x / SDXL text_encoder
+OPEN_CLIP_VIT_H = CLIPTextConfig(
+    hidden_size=1024, num_layers=23, num_heads=16, intermediate_size=4096,
+    hidden_act="gelu",
+)  # SD2.1
+OPEN_CLIP_BIG_G = CLIPTextConfig(
+    hidden_size=1280, num_layers=32, num_heads=20, intermediate_size=5120,
+    hidden_act="gelu", projection_dim=1280,
+)  # SDXL text_encoder_2
 
 TINY_CLIP = CLIPTextConfig(
     vocab_size=64, hidden_size=32, num_layers=2, num_heads=2,

@@ -1,4 +1,4 @@
-"""Config-driven UNet2DCondition for the SD family (SD path).
+"""Config-driven UNet2DCondition for the SD family (SD1.x/2.1, SDXL, refiner).
 
 Counterpart of ``image_editing_framework_tpu/models/unet.py``. Every
 BasicTransformerBlock carries a static forward-order index (``layer``); the
@@ -9,8 +9,13 @@ keyed like ``up1_res1``.
 
 Module and parameter names follow diffusers, so ``state_dict()`` keys are
 diffusers keys. Inside, activations are NCHW (cuDNN convolutions); the
-public ``forward`` takes and returns the JAX package's NHWC latents. The
-SDXL ``added_cond`` branch arrives with the SDXL slice.
+public ``forward`` takes and returns the JAX package's NHWC latents.
+
+SDXL's ``added_cond`` (``text_embeds`` and ``time_ids``) feeds the
+``add_embedding`` MLP, whose output joins the time embedding. ``remat=True``
+checkpoints every BasicTransformerBlock (``torch.utils.checkpoint``), the
+counterpart of the JAX ``nn.remat`` twin: the same values and gradients,
+with the blocks' activations recomputed during the backward pass.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from image_editing_framework_torch.models.embeddings import TimestepEmbedding, sinusoidal_timestep_embedding
 from image_editing_framework_torch.ops.attention import (
@@ -60,6 +66,16 @@ class UNetConfig:
     transformer_layers: Tuple[int, ...] = (1, 1, 1, 1)
     cross_attention_dim: int = 768
     use_linear_projection: bool = False
+    # SDXL "text_time" addition embeddings.
+    addition_time_embed_dim: Optional[int] = None  # 256 for XL
+    projection_class_embeddings_input_dim: Optional[int] = None  # 2816 base / 2560 refiner
+
+    @property
+    def num_transformer_blocks(self) -> int:
+        """Total BasicTransformerBlocks in forward order (16 for SD, 70 for
+        SDXL): the self-attention sites of one forward."""
+        down, mid, up = self.forward_layout()
+        return sum(len(tb) for blk in down + up for tb in blk) + len(mid)
 
     def forward_layout(self):
         """Assign forward-order transformer-block indices.
@@ -184,7 +200,7 @@ class Transformer2D(nn.Module):
         )
         self.proj_out = proj()
 
-    def forward(self, x, context, ctrl, running=None):
+    def forward(self, x, context, ctrl, running=None, remat=False):
         b, c, hh, ww = x.shape
         residual = x
         h = self.norm(x)
@@ -195,11 +211,15 @@ class Transformer2D(nn.Module):
             h = self.proj_in(h)
         records: Records = {}
         # ``running`` is the UNet-wide records dict, threaded down so later
-        # sites see earlier sites' recorded maps within the same forward.
+        # sites see earlier sites' recorded maps within the same forward;
+        # it is updated here, outside the (possibly checkpointed) block.
         if running is None:
             running = {}
         for block in self.transformer_blocks:
-            h, rec = block(h, context, ctrl, dict(running))
+            if remat:
+                h, rec = checkpoint(block, h, context, ctrl, dict(running), use_reentrant=False)
+            else:
+                h, rec = block(h, context, ctrl, dict(running))
             records.update(rec)
             running.update(rec)
         if self.use_linear_projection:
@@ -272,6 +292,8 @@ class UNet2DCondition(nn.Module):
         down_layout, mid_layout, up_layout = cfg.forward_layout()
         self.conv_in = nn.Conv2d(cfg.in_channels, block0, 3, padding=1)
         self.time_embedding = TimestepEmbedding(block0, temb_dim)
+        if cfg.addition_time_embed_dim is not None:
+            self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim, temb_dim)
 
         skip_channels = [block0]
         self.down_blocks = nn.ModuleList()
@@ -319,15 +341,25 @@ class UNet2DCondition(nn.Module):
         self.conv_norm_out = nn.GroupNorm(32, block0, eps=1e-5)
         self.conv_out = nn.Conv2d(block0, cfg.out_channels, 3, padding=1)
 
-    def forward(self, sample: torch.Tensor, timestep, context: torch.Tensor, ctrl=None):
+    def forward(self, sample: torch.Tensor, timestep, context: torch.Tensor, ctrl=None,
+                added_cond: Optional[Dict[str, torch.Tensor]] = None, remat: bool = False):
         """sample: (B, h, w, C) NHWC latents; timestep: int or (B,);
-        context: (B, 77, cross_dim). Returns (eps NHWC, records)."""
+        context: (B, 77, cross_dim); added_cond (SDXL): ``text_embeds``
+        (B, pooled dim) and ``time_ids`` (B, 6 or 5). ``remat`` checkpoints
+        the transformer blocks. Returns (eps NHWC, records)."""
+        cfg = self.config
         if ctrl is None:
             ctrl = NoneStep()
         dtype = self.conv_in.weight.dtype
         b = sample.shape[0]
         t = torch.as_tensor(timestep, device=sample.device).expand(b)
-        temb = self.time_embedding(sinusoidal_timestep_embedding(t, self.config.block_out_channels[0], dtype=dtype))
+        temb = self.time_embedding(sinusoidal_timestep_embedding(t, cfg.block_out_channels[0], dtype=dtype))
+        if cfg.addition_time_embed_dim is not None:
+            if added_cond is None:
+                raise ValueError("an SDXL UNet needs added_cond (text_embeds, time_ids)")
+            ids = added_cond["time_ids"].to(sample.device).reshape(-1)
+            te = sinusoidal_timestep_embedding(ids, cfg.addition_time_embed_dim, dtype=dtype).reshape(b, -1)
+            temb = temb + self.add_embedding(torch.cat([added_cond["text_embeds"].to(dtype), te], dim=-1))
         context = context.to(dtype)
 
         records: Records = {}
@@ -337,7 +369,7 @@ class UNet2DCondition(nn.Module):
             for j, resnet in enumerate(blk.resnets):
                 x = resnet(x, temb, ctrl)
                 if len(blk.attentions):
-                    x, rec = blk.attentions[j](x, context, ctrl, records)
+                    x, rec = blk.attentions[j](x, context, ctrl, records, remat)
                     records.update(rec)
                 skips.append(x)
             if hasattr(blk, "downsamplers"):
@@ -345,7 +377,7 @@ class UNet2DCondition(nn.Module):
                 skips.append(x)
 
         x = self.mid_block.resnets[0](x, temb, ctrl)
-        x, rec = self.mid_block.attentions[0](x, context, ctrl, records)
+        x, rec = self.mid_block.attentions[0](x, context, ctrl, records, remat)
         records.update(rec)
         x = self.mid_block.resnets[1](x, temb, ctrl)
 
@@ -353,7 +385,7 @@ class UNet2DCondition(nn.Module):
             for j, resnet in enumerate(blk.resnets):
                 x = resnet(torch.cat([x, skips.pop()], dim=1), temb, ctrl)
                 if len(blk.attentions):
-                    x, rec = blk.attentions[j](x, context, ctrl, records)
+                    x, rec = blk.attentions[j](x, context, ctrl, records, remat)
                     records.update(rec)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)

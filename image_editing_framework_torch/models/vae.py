@@ -186,3 +186,52 @@ class AutoencoderKL(nn.Module):
         (reference latent2image, p2p/model/sd_utils.py:82-88)."""
         z = z.permute(0, 3, 1, 2).contiguous() / self.config.scaling_factor
         return self.decoder(self.post_quant_conv(z)).permute(0, 2, 3, 1)
+
+
+@torch.no_grad()
+def decode_tiled(vae: AutoencoderKL, z: torch.Tensor, tile: int = 64, overlap: int = 16) -> torch.Tensor:
+    """Memory-bounded decode (JAX ``models/vae.py:163 decode_tiled``): split
+    the (B, h, w, 4) scaled latents into overlapping spatial tiles, decode
+    each, and blend the overlaps with linear ramps (rows, then columns: the
+    diffusers enable_vae_tiling recipe). Peak activation memory follows the
+    tile, not the image.
+
+    ``tile``/``overlap`` are in latent pixels; the decoded tiles overlap by
+    scale*overlap image pixels (scale = the decoder's upsampling factor, 8
+    for SD VAEs). Tiles are decoded and accumulated one at a time.
+    """
+    b, h, w, _ = z.shape
+    if h <= tile and w <= tile:
+        return vae.decode(z)
+    # Small tiles with the default overlap would give a non-positive stride;
+    # cap the overlap at half the tile.
+    overlap = min(overlap, tile // 2)
+    stride = tile - overlap
+    rows = max(1, -(-(h - overlap) // stride))
+    cols = max(1, -(-(w - overlap) // stride))
+    scale = 2 ** (len(vae.config.block_out_channels) - 1)
+    out_tile, out_ov = tile * scale, overlap * scale
+    img_h, img_w = h * scale, w * scale
+    ramp = torch.arange(1, out_ov + 1, dtype=torch.float32, device=z.device) / (out_ov + 1)
+
+    def edge_weights(t0, full):
+        wgt = torch.ones(out_tile, dtype=torch.float32, device=z.device)
+        if t0 > 0:
+            wgt[:out_ov] = ramp
+        if t0 + out_tile < full:
+            wgt[-out_ov:] = ramp.flip(0)
+        return wgt
+
+    canvas = torch.zeros((b, img_h, img_w, 3), dtype=z.dtype, device=z.device)
+    weight = torch.zeros((1, img_h, img_w, 1), dtype=torch.float32, device=z.device)
+    for r in range(rows):
+        y = min(r * stride, h - tile)
+        for c in range(cols):
+            x = min(c * stride, w - tile)
+            timg = vae.decode(z[:, y:y + tile, x:x + tile])
+            ty, tx = y * scale, x * scale
+            wt = (edge_weights(ty, img_h)[:, None] * edge_weights(tx, img_w)[None, :])[None, :, :, None]
+            # in place: the canvas and the weight sum belong to this call
+            canvas[:, ty:ty + out_tile, tx:tx + out_tile] += (timg.float() * wt).to(canvas.dtype)
+            weight[:, ty:ty + out_tile, tx:tx + out_tile] += wt
+    return (canvas.float() / torch.clamp(weight, min=1e-6)).to(canvas.dtype)

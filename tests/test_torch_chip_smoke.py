@@ -28,3 +28,43 @@ def test_chip_smoke_fails_alone(tmp_path):
     out = _run(str(lone), str(tmp_path))
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _load_script():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", SCRIPT)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)  # importing it runs nothing: main() is behind the __main__ check
+    return module
+
+
+def test_chip_smoke_builds_every_kernel_source():
+    """Every CUDA source of the port is in SOURCES, so the script alone
+    builds them all (one nvcc each, started together)."""
+    smoke = _load_script()
+    csrc = os.path.join(ROOT, "image_editing_framework_torch", "csrc")
+    on_disk = sorted(name[:-3] for name in os.listdir(csrc) if name.endswith(".cu"))
+    assert sorted(smoke.SOURCES) == on_disk and "mma_probe" in smoke.SOURCES
+
+
+def test_chip_smoke_wires_every_phase_into_main():
+    """main() runs the earlier phases and the SDXL slice's: the probe, both
+    models' main, NTI and profile phases, and the refiner; the kernels line
+    names all four kernels; the XL shapes are SDXL's 70 sites at head dim 64."""
+    import inspect
+
+    smoke = _load_script()
+    source = inspect.getsource(smoke.main)
+    for phase in ("phase_device", "phase_kernels", "phase_bwd_kernels", "phase_probe", "phase_tiny",
+                  "phase_main_path", "phase_nti_path", "phase_profile", "phase_refiner"):
+        assert callable(getattr(smoke, phase)) and phase in source, phase
+    assert '("sd", ""), ("xl", "xl_")' in source  # both models go through main, NTI and profile
+    for kernel in ("flash_fwd", "flash_bwd_", "mma_probe"):
+        assert f'"name": "{kernel}' in source or f'"name": f"{kernel}' in source, kernel
+    assert smoke.PATH_SHAPES["xl"] == [(4096, 64, 10, 10), (1024, 64, 20, 60)]
+    assert smoke.SITES == {"sd": 16, "xl": 70} and smoke.GRAD_SITES == {"sd": 15, "xl": 69}
+    assert smoke.PATH_SHAPES["sd"][0] == (4096, 40, 8, 5)  # the SD1.5 shapes stay
+    assert "xl_tiny" in inspect.getsource(smoke.phase_tiny)
+    last = source.rstrip().splitlines()
+    assert '"ok": True' in "".join(last[-4:])  # the result object is printed last

@@ -120,12 +120,18 @@ def test_nti_takes_bf16_inputs_and_returns_f32(pipes, inverted):
 
 
 def test_nti_refuses_what_later_slices_bring(pipes, inverted):
+    """Nothing of ``null_text_inversion`` is refused any more: a checkpointed
+    UNet (``remat=True``) gives the plain one's embeddings bit for bit, and
+    an SD pipeline ignores added conditions as the JAX UNet does. An unknown
+    inversion type is still an error."""
     _, tpipe = pipes
     _, traj, ctx = inverted
-    with pytest.raises(NotImplementedError, match="remat"):
-        tnti.null_text_inversion(tpipe, t(traj), t(ctx), TNTIConfig(remat=True))
-    with pytest.raises(NotImplementedError):
-        tnti.null_text_inversion(tpipe, t(traj), t(ctx), added_cond={"text_embeds": t(ctx)})
+    cfg = TNTIConfig(num_inner_steps=2)
+    plain = tnti.null_text_inversion(tpipe, t(traj), t(ctx), cfg)
+    assert torch.equal(tnti.null_text_inversion(tpipe, t(traj), t(ctx), TNTIConfig(num_inner_steps=2, remat=True)),
+                       plain)
+    assert torch.equal(tnti.null_text_inversion(tpipe, t(traj), t(ctx), cfg, added_cond={"text_embeds": t(ctx)}),
+                       plain)
     with pytest.raises(ValueError, match="inversion type"):
         tcli.invert(tpipe, IMAGE, PROMPT, "negative-prompt", "p2p")
 
@@ -148,7 +154,7 @@ def test_p2p_edit_with_inversion_outputs_matches_jax(pipes, inverted, jax_runs, 
                               use_flash=False, **{k: jnp.asarray(v) for k, v in extra.items()})
 
     sampler = TSampler(height=32, width=32)
-    lat0, context, ctrl, blend = p2p_setup(tpipe, PROMPTS, t(last), TP2PConfig(blend_words=BLEND), sampler)
+    lat0, context, ctrl, blend, _ = p2p_setup(tpipe, PROMPTS, t(last), TP2PConfig(blend_words=BLEND), sampler)
     blend = RecordingBlend(blend.alpha_layers, blend.threshold)
     textra = {k: t(v) for k, v in extra.items()}
     tfinal = tbase.denoise(tpipe, lat0, context, ctrl, guidance_scale=sampler.guidance_scale, blend=blend, **textra)

@@ -76,7 +76,7 @@ def test_invert_and_p2p_edit_match_jax(pipes):
     shared = np.asarray(jlast)
     jfinal = _jax_edit_latents(jpipe, jnp.asarray(shared))
     sampler = TSampler(height=32, width=32)
-    lat0, context, ctrl, blend = p2p_setup(tpipe, PROMPTS, t(shared), TP2PConfig(blend_words=BLEND), sampler)
+    lat0, context, ctrl, blend, _ = p2p_setup(tpipe, PROMPTS, t(shared), TP2PConfig(blend_words=BLEND), sampler)
     blend = RecordingBlend(blend.alpha_layers, blend.threshold)
     tfinal = tbase.denoise(tpipe, lat0, context, ctrl, guidance_scale=sampler.guidance_scale, blend=blend)
     assert len(blend.gaps) == STEPS and min(blend.gaps) > MARGIN, blend.gaps
@@ -104,7 +104,7 @@ def test_refine_reweight_edit_matches_jax(pipes):
     ctrl = jctl.build_p2p_control(prompts, jpipe.tokenizer, STEPS, jcfg)
     context, _ = jcommon.prepare_conditioning(jpipe, prompts, 32, 32)
     jfinal, _ = jbase.denoise(jpipe, jcommon.expand_latent(jnp.asarray(start), 2), context, ctrl, use_flash=True)
-    lat0, tctx, tctrl, blend = p2p_setup(tpipe, prompts, t(start), TP2PConfig(**kw), TSampler(height=32, width=32))
+    lat0, tctx, tctrl, blend, _ = p2p_setup(tpipe, prompts, t(start), TP2PConfig(**kw), TSampler(height=32, width=32))
     assert blend is None
     tfinal = tbase.denoise(tpipe, lat0, tctx, tctrl)
     np.testing.assert_allclose(n(tfinal), n(jfinal), atol=ATOL, rtol=0)

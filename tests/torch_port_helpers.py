@@ -23,14 +23,18 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def shared_pipelines(num_steps: int = 4, seed: int = 0):
+def shared_pipelines(num_steps: int = 4, seed: int = 0, model_type: str = "sd"):
     """(jax_pipe, torch_pipe) with the same tiny-pipeline weights; the port's
-    runs on the CPU in f32."""
-    jpipe = jax_tiny_pipeline(num_steps=num_steps, seed=seed)
-    tpipe = torch_tiny_pipeline(num_steps=num_steps, device="cpu")
+    runs on the CPU in f32. ``model_type``: 'sd', 'xl' (both text towers,
+    the second with its ``text_projection``; the UNet's ``add_embedding``)
+    or 'xl-refiner' (its one tower serves as both)."""
+    jpipe = jax_tiny_pipeline(num_steps=num_steps, model_type=model_type, seed=seed)
+    tpipe = torch_tiny_pipeline(num_steps=num_steps, model_type=model_type, device="cpu")
     load_weights(tpipe.unet, loader.export_params(jpipe.unet_params, loader.unet_key))
     load_weights(tpipe.vae, loader.export_params(jpipe.vae_params, loader.vae_key))
     load_weights(tpipe.text_encoder, loader.export_params(jpipe.text_params, loader.clip_key))
+    if model_type == "xl":
+        load_weights(tpipe.text_encoder_2, loader.export_params(jpipe.text_params_2, loader.clip_key))
     return jpipe, tpipe
 
 
