@@ -4,15 +4,19 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, one line of output each (any failure exits non-zero):
   1. device: card name and power limit, torch/CUDA versions, kernel build
-     (every CUDA source of the port, one nvcc each, all started together);
+     (every CUDA source of the port, one nvcc each, all started together),
+     then one line per forward instantiation with its registers, shared
+     memory and spills from the build's ``-Xptxas -v`` report (a bf16
+     instantiation that spills fails the phase);
   2. kernels: each kernel against its plain PyTorch version on the card at
      its paths' shapes (SD1.5's and SDXL's), as the head-split views the
      UNet passes (bf16 and f32), and at edge cases (padded Nk, Nq off the tile, NEG_INF bias
      segments, fully masked rows, lse), within ``parity_atol`` (forward)
      and ``grad_parity_atol`` (backward); at the path's shapes also the
      kernel's, plain version's and library call's times, the bound, and the
-     readings of planted faults (emulated in plain PyTorch) that the bf16
-     limit must reject;
+     readings of planted faults (emulated in plain PyTorch, at the key tile
+     of the kernel they check) that the bf16 limit must reject; the forward
+     wrapper's host µs per call at a batch-1 SDXL site;
      probe: the tile-shape probe kernel against its plain version for
      every layout and head dim, every block's value, then its timed table
      through the tool's entry point;
@@ -42,6 +46,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -70,8 +75,16 @@ PROBE_RTOL = 1e-6  # probe kernel vs plain version, relative to the sum of the t
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 PEAK_F32 = 67e12  # CUDA-core f32 FLOP/s
 HBM = 3.35e12  # bytes/s
-KEY_TILE = 64  # keys per tile of the bf16 kernels (csrc/flash_fwd.cu kBK, csrc/flash_bwd.cu kTile)
+FWD_KEY_TILE = 128  # keys per tile of the bf16 forward up to d = 80 (csrc/flash_fwd.cu kBK)
+FWD_KEY_TILE_WIDE = 64  # ... at d = 160 (csrc/flash_fwd.cu kBKWide)
+BWD_KEY_TILE = 64  # keys (and queries) per tile of the bf16 backward (csrc/flash_bwd.cu kTile)
 PROFILE_REPS = 10
+
+
+def fwd_key_tile(d):
+    """Keys per tile of the bf16 forward at head dim d (csrc/flash_fwd.cu
+    Tile<DP>::BK)."""
+    return FWD_KEY_TILE if d <= 80 else FWD_KEY_TILE_WIDE
 
 
 def emit(tag, **fields):
@@ -136,6 +149,44 @@ def bound_ms(flops, nbytes, dtype):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def ptxas_entries(report):
+    """Registers, stack and spills of every kernel in an ``-Xptxas -v``
+    report, keyed by its mangled name."""
+    entries, name = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entries[name] = {}
+        elif name and "bytes stack frame" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            entries[name].update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif name and "Used" in line and "registers" in line:
+            entries[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return entries
+
+
+def forward_instances():
+    """Each instantiation of the forward kernels: padded head dim, bias,
+    lse, registers, spills and (bf16) dynamic shared memory, from the build's
+    ``-Xptxas -v`` report; ptxas warnings besides."""
+    import ctypes
+
+    from image_editing_framework_torch.ops import _cuda
+
+    report = _cuda.ptxas_report("flash_fwd")
+    smem = _cuda.load("flash_fwd").flash_fwd_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    rows = []
+    for name, info in ptxas_entries(report).items():
+        m = re.search(r"flash_fwd_(bf16|f32)ILi(\d+)ELb([01])ELb([01])E", name)
+        if m:
+            kind, dp = m.group(1), int(m.group(2))
+            rows.append(dict(kernel=f"flash_fwd_{kind}", dp=dp, bias=m.group(3) == "1", lse=m.group(4) == "1",
+                             smem_bytes=smem(dp) if kind == "bf16" else None, **info))
+    warnings = [line.strip() for line in report.splitlines() if "warning" in line.lower()]
+    return rows, warnings
+
+
 def phase_device():
     from image_editing_framework_torch.ops import _cuda
 
@@ -150,27 +201,37 @@ def phase_device():
     emit("device", card=card_line(), torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), build_s=round(time.perf_counter() - t0, 3),
          build_s_each={k: round(v, 3) for k, v in each.items()})
+    rows, warnings = forward_instances()
+    bf16 = [r for r in rows if r["kernel"] == "flash_fwd_bf16"]
+    for row in rows:
+        emit("ptxas", **row)
+    emit("ptxas_warnings", source="flash_fwd", warnings=warnings)
+    spilled = [r for r in bf16 if r.get("spill_stores") or r.get("spill_loads")]
+    if len(bf16) != 24 or spilled:
+        raise AssertionError(f"{len(bf16)} bf16 forward instantiations (24 expected); spills in {spilled}")
+    return bf16
 
 
 def fault_readings(q, k, v, ref):
     """max|O - ref| of three broken kernels, emulated in plain PyTorch on
-    the same bf16 inputs: one key tile skipped, the accumulator not rescaled
-    when the running max grows, P left unrounded before P·V."""
+    the same bf16 inputs, with the forward's key tile at this head dim: the
+    last key tile skipped, the accumulator not rescaled when the running max
+    grows, P left unrounded before P·V."""
     from image_editing_framework_torch.ops import flash_attention as fa
 
-    nk = k.shape[2]
+    nk, tile_keys = k.shape[2], fwd_key_tile(q.shape[-1])
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
     bias = torch.zeros(q.shape[0], nk, device=q.device)
-    bias[:, nk - KEY_TILE:] = float("-inf")
+    bias[:, (nk - 1) // tile_keys * tile_keys:] = float("-inf")
     skipped = fa.flash_attention_reference(q, k, v, bias)
     m = torch.full_like(s[..., :1], float("-inf"))
     l = acc = 0.0
-    for j in range(0, nk, KEY_TILE):
-        tile = s[..., j:j + KEY_TILE]
+    for j in range(0, nk, tile_keys):
+        tile = s[..., j:j + tile_keys]
         m_new = torch.maximum(m, tile.amax(-1, keepdim=True))
         p = torch.exp(tile - m_new)
         l = l * torch.exp(m - m_new) + p.sum(-1, keepdim=True)
-        acc = acc + torch.matmul(p.to(v.dtype).float(), v[:, :, j:j + KEY_TILE].float())  # no acc·alpha
+        acc = acc + torch.matmul(p.to(v.dtype).float(), v[:, :, j:j + tile_keys].float())  # no acc·alpha
         m = m_new
     p = torch.exp(s - s.amax(-1, keepdim=True))
     unrounded = torch.matmul(p, v.float()) / p.sum(-1, keepdim=True)
@@ -182,10 +243,12 @@ def fault_readings(q, k, v, ref):
 
 def phase_kernels(gen):
     """Kernel vs plain version; times at the paths' shapes. Returns the
-    worst errors and, per model, the sums over the sites of one CFG-batch
-    UNet forward (16 for SD1.5, 70 for SDXL)."""
+    worst errors, per model the sums over the sites of one CFG-batch UNet
+    forward (16 for SD1.5, 70 for SDXL), and the wrapper's host µs per call
+    at a batch-1 SDXL site."""
     from image_editing_framework_torch.ops import flash_attention as fa
     from image_editing_framework_torch.ops.attention import split_heads
+    from image_editing_framework_torch.tools.bench_flash_fwd import enqueue_us
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
@@ -221,7 +284,7 @@ def phase_kernels(gen):
             row["model"] = model
         if timed and dtype == torch.bfloat16:
             row["faults"] = faults = fault_readings(q, k, v, ref)
-            must_fail = ["skipped_key_tile"] + (["no_acc_rescale"] if nk > KEY_TILE else [])
+            must_fail = ["skipped_key_tile"] + (["no_acc_rescale"] if nk > fwd_key_tile(d) else [])
             passed = [name for name in must_fail if not faults[name] > tol]
             if passed:
                 raise AssertionError(f"the bf16 limit {tol} does not reject the planted faults {passed}: {faults}")
@@ -248,6 +311,7 @@ def phase_kernels(gen):
                           model=model)
         for nk in (77, 1000):  # keys not a multiple of the kernel's tile
             check(dtype, 2, HEADS, 256, nk, 40, lse=True)
+        check(dtype, 2, HEADS, 200, 100, 64, lse=True)  # Nq off the 128-query block, Nk below one key tile
         bias = torch.zeros(2, 1000, device="cuda")
         bias[:, 200:600] = fa.NEG_INF  # a masked segment
         bias[1] = fa.NEG_INF  # a fully NEG_INF-masked row: equal weights
@@ -257,22 +321,27 @@ def phase_kernels(gen):
         check(dtype, 2, HEADS, 64, 512, 160, bias=bias, lse=True)
     for part in sums.values():
         part["bound_ms"], part["bound_by"] = bound_ms(part["flops"], part["bytes"], torch.bfloat16)
-    return worst, sums
+    # host time per call (checks, tensor maps, launch) at a batch-1 SDXL site
+    q, k, v = (split_heads(torch.randn(1, 1024, 20 * 64, device="cuda", dtype=torch.bfloat16, generator=gen), 20)
+               for _ in range(3))
+    enqueue = enqueue_us(lambda: fa.flash_attention(q, k, v))
+    emit("enqueue", kernel="flash_fwd", shape=[1, 20, 1024, 1024, 64], us_per_call=enqueue)
+    return worst, sums, enqueue
 
 
 def bwd_fault_readings(q, k, v, do, o, lse, ref):
     """max|grad - ref| per output of three broken backward kernels, emulated
     in plain PyTorch on the same bf16 inputs: di left out (as if O were 0),
-    one 64-key tile skipped in dQ (its keys' P set to 0), one 64-query tile
-    skipped in dK/dV (its queries' P set to 0). Each fault names the outputs
-    it reaches."""
+    one BWD_KEY_TILE-key tile skipped in dQ (its keys' P set to 0), one
+    query tile of that size skipped in dK/dV (its queries' P set to 0). Each
+    fault names the outputs it reaches."""
     from image_editing_framework_torch.ops import flash_attention as fa
 
     nq, nk = q.shape[2], k.shape[2]
     key_bias = torch.zeros(q.shape[0], nk, device=q.device)
-    key_bias[:, nk - KEY_TILE:] = float("-inf")
+    key_bias[:, nk - BWD_KEY_TILE:] = float("-inf")
     lse_skip = lse.clone()
-    lse_skip[:, :, max(0, nq - KEY_TILE):] = float("-inf")
+    lse_skip[:, :, max(0, nq - BWD_KEY_TILE):] = float("-inf")
     faults = {
         "no_di": (fa.flash_attention_bwd_reference(q, k, v, None, torch.zeros_like(o), do, lse), ("dq", "dk")),
         "skipped_key_tile_dq": (fa.flash_attention_bwd_reference(q, k, v, key_bias, o, do, lse), ("dq",)),
@@ -723,8 +792,8 @@ def main() -> int:
         seconds[name] = time.perf_counter() - t0
         return out
 
-    run("device", phase_device)
-    worst, sums = run("kernels", phase_kernels, gen)
+    instances = run("device", phase_device)
+    worst, sums, enqueue = run("kernels", phase_kernels, gen)
     bwd_worst, bwd_sums = run("bwd_kernels", phase_bwd_kernels, gen)
     probe = run("probe", phase_probe)
     run("tiny", phase_tiny)
@@ -770,6 +839,13 @@ def main() -> int:
         "max_abs_err": worst[torch.bfloat16], "max_abs_err_f32": worst[torch.float32],
         **at(sums["sd"]), "work": "the 16 self-attention sites of one SD1.5 512² UNet forward at CFG batch 4, bf16",
         "at_xl": dict(at(sums["xl"]), work="the 70 sites of one SDXL 1024² UNet forward at CFG batch 4, bf16"),
+        "design": "bf16: wgmma (S = Q·Kᵀ SS, O += P·V RS with P from registers, V MN-major), K/V tiles by TMA "
+                  "over rank-4 (D, N, H, B) tensor maps into a 2-stage ring on mbarriers, one producer warp, two "
+                  "consumer warpgroups of 64 queries (128 per block; one, 64 queries, at d = 160), setmaxnreg "
+                  "24/240; 128-key tiles, 64 at d = 160; f32: CUDA cores",
+        "enqueue_us_b1_1024_d64": enqueue,
+        "bf16_instances": [{key: r.get(key) for key in ("dp", "bias", "lse", "registers", "smem_bytes",
+                                                         "spill_stores", "spill_loads")} for r in instances],
     }
     mma_probe = {
         "name": "mma_probe", "route": "cuda", "source": "image_editing_framework_torch/csrc/mma_probe.cu",

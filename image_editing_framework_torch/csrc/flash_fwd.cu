@@ -13,25 +13,47 @@
 //   lse[b,h] = m + log(l)                      (optional, f32)
 //
 // by online softmax over key tiles. Scores and softmax statistics are f32.
-// bf16 inputs: bf16 products with f32 accumulation (mma.sync), and the
-// unnormalised probabilities are rounded to bf16 before P.V, as the TPU
+// bf16 inputs: bf16 products with f32 accumulation on the tensor cores, and
+// the unnormalised probabilities are rounded to bf16 before P.V, as the TPU
 // kernel does (flash_attention.py:118-121). f32 inputs: true f32 products on
 // the CUDA cores (never TF32). Keys at or beyond Nk do not exist for the
 // softmax. A row whose every key has a -inf logit has l == 0 and returns 0.
 // NEG_INF (-0.7 * f32 max) is a finite logit: a row masked by it everywhere
 // gets equal weights, as softmax gives.
 //
-// What bounds it on the card: at the SD1.5 4096-token sites (batch 4, 8
-// heads, d=40) one call does ~86 GFLOP against ~42 MB of Q/K/V/O traffic in
-// bf16, ~2000 FLOP per byte, far above the H100's ~295 FLOP/byte ridge: the
-// kernel is bound by tensor-core operations. The design keeps the (N, N)
-// score matrix out of device memory (registers only), keeps each block's Q
-// fragments in registers for the whole key loop and stages K/V tiles in
-// shared memory once per 64 queries, so device-memory traffic stays near the
-// one-read-per-input bound. It uses mma.sync m16n8k16 (the simple route);
-// wgmma, TMA and warp specialisation, which reach the card's full tensor
-// rate, are left for a later change.
+// What bounds it on the card: at the SDXL 4096-token sites (batch 4, 10
+// heads, d=64) one call does ~172 GFLOP against ~84 MB of Q/K/V/O traffic,
+// ~2000 FLOP per byte, far above the H100's ~295 FLOP/byte ridge: the kernel
+// is bound by tensor-core operations, and next by the softmax's exponentials
+// (one MUFU op per score: at d=64 the SM's 16 ex2 a clock take as long as
+// the two products at the full tensor rate). The bf16 path reaches the
+// tensor cores' full rate only through wgmma fed from shared memory, with
+// copies that overlap the math:
+//   * Tensor cores through wgmma. S = Q K^T reads both operands from shared
+//     memory (SS); O += P V takes P from registers (RS): the S accumulator,
+//     packed to bf16, is the A fragment. V is the B operand with d
+//     contiguous, MN-major, read with the transpose bit.
+//   * Warp specialisation. One producer warp issues TMA copies of the
+//     block's Q tile (once) and of K/V tiles into a ring of kStages stages;
+//     mbarriers say that a stage has arrived (transaction bytes) and that
+//     the consumer warpgroups are done with it. Two consumer warpgroups own
+//     64 query rows each and share every K/V tile: 128 queries per block
+//     (one warpgroup, 64 queries, at d = 160, whose sites are small).
+//     setmaxnreg moves registers from the producer to the consumers.
+//   * Rank-4 tensor maps (D, N, H, B) over the operands' own strides, so the
+//     UNet's head-split views are read as they are. TMA's zero fill pads d
+//     to DP and fills the ragged query and key tails; keys >= Nk still get
+//     a -inf score (a zero key scores 0). Each DP is split into column
+//     blocks of one swizzle row (W = 64, 32 or 16 bf16: 128-, 64- or 32-byte
+//     swizzle), one TMA box each.
+//   * Softmax in registers, four threads per row as the wgmma accumulator
+//     lays rows out; without a bias log2(e) is folded into the scale, with
+//     one the logits stay in natural units so that NEG_INF stays finite.
+// Within a warpgroup the softmax still serialises with both products; the
+// two warpgroups overlap each other's. Ping-pong scheduling, overlapping the
+// next QK^T with the softmax, persistent blocks and clusters are not done.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -40,6 +62,7 @@
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -57,19 +80,113 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync.m16n8k16
+// bf16: wgmma on TMA-fed tiles, one producer warp and two consumer warpgroups
 
-constexpr int kBQ = 64;  // query rows per block: 4 warps x 16 rows
-constexpr int kBK = 64;  // keys per shared-memory tile
-constexpr int kThreads = 128;
+constexpr int kBK = 128;      // keys per K/V tile up to d = 80
+constexpr int kBKWide = 64;   // keys per K/V tile at d = 160 (O alone is 80 f32 a thread)
+constexpr int kStages = 2;    // depth of the K/V ring
+constexpr int kWG = 128;      // threads per warpgroup; a consumer warpgroup owns 64 query rows
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;  // two consumers: 24 * 128 + 240 * 256 <= 65536
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+template <int DP>
+struct Tile {
+  // Two consumer warpgroups share each K/V tile up to d = 80. At d = 160
+  // one does: its sites are small (256 and 64 tokens) and 128-query blocks
+  // would leave half the SMs idle.
+  static constexpr int WGS = DP > 80 ? 1 : 2;
+  static constexpr int BQ = 64 * WGS;            // query rows per block
+  static constexpr int THREADS = kWG * (WGS + 1);  // consumers first, then the producer
+  static constexpr int BK = DP > 80 ? kBKWide : kBK;
+  // One swizzle row holds W bf16; d is split into NCB column blocks of W,
+  // each one TMA box and one (rows x W) stretch of shared memory.
+  static constexpr int W = DP % 64 == 0 ? 64 : DP % 32 == 0 ? 32 : 16;
+  static constexpr int SW = 2 * W;  // swizzle bytes: 128, 64 or 32
+  static constexpr int NCB = DP / W;
+  static constexpr uint64_t kLayout = W == 64 ? 1 : W == 32 ? 2 : 3;  // wgmma descriptor swizzle code
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;  // K or V, one stage
+  // tiles (1024-byte aligned), then the mbarriers: Q, full[kStages], empty[kStages]
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * kStages * KV_BYTES + 8 * (1 + 2 * kStages);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Returns once the barrier's phase of this parity has completed. A wait
+// longer than ~2^34 clocks (about 10 s) traps: a lost arrival fails the
+// launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+// One box of a rank-4 tensor map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
+                                         uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle code.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Pins registers at this point: an accumulator is not read, nor a register
+// operand reused, before the wgmma that owns it has been waited for.
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -77,174 +194,321 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+// S (+)= A B^T, A and B K-major in shared memory: m64n64k16.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate)
+      : "memory");
 }
 
-// Two neighbouring bf16 of one row (col even, D even), zero outside.
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* base,
-                                              long long sn, int row, int col,
-                                              int nrows, int d) {
-  if (row >= nrows || col >= d) return 0u;
-  return *reinterpret_cast<const uint32_t*>(base + row * sn + col);
+// S (+)= A B^T, A and B K-major in shared memory: m64n128k16.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate)
+      : "memory");
+}
+
+// O += P V, P (bf16 A fragment) in registers, V MN-major in shared memory: m64n16k16.
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
+}
+
+// O += P V, P (bf16 A fragment) in registers, V MN-major in shared memory: m64n32k16.
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
+}
+
+// O += P V, P (bf16 A fragment) in registers, V MN-major in shared memory: m64n48k16.
+__device__ __forceinline__ void wgmma_rs(float (&d)[24], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
+}
+
+// O += P V, P (bf16 A fragment) in registers, V MN-major in shared memory: m64n64k16.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
+}
+
+// O += P V, P (bf16 A fragment) in registers, V MN-major in shared memory: m64n80k16.
+__device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
+}
+
+// O += P V, P (bf16 A fragment) in registers, V MN-major in shared memory: m64n160k16.
+__device__ __forceinline__ void wgmma_rs(float (&d)[80], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
 }
 
 template <int DP, bool HAS_BIAS, bool WANT_LSE>
-__global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
-  constexpr int LDS = DP + 8;  // padded row: conflict-free fragment reads
-  constexpr int KSTEPS = DP / 16;
-  constexpr int NT = kBK / 8;  // score n-tiles per warp
-  constexpr int DT = DP / 8;   // output n-tiles per warp
-  constexpr int CHUNKS = DP / 8;  // 16-byte chunks per row
-  __shared__ __align__(16) __nv_bfloat16 ks[kBK * LDS];
-  __shared__ __align__(16) __nv_bfloat16 vs[kBK * LDS];
-  __shared__ float bs[kBK];
+__global__ void __launch_bounds__(Tile<DP>::THREADS, 1)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, Params p) {
+  using T = Tile<DP>;
+  constexpr int BK = T::BK, W = T::W, SW = T::SW;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;  // Q: NCB blocks of (BQ x W)
+  const uint32_t skv = sq + T::Q_BYTES;  // stage s: K at skv + 2 s KV_BYTES, V after it; NCB blocks of (BK x W)
+  const uint32_t qbar = skv + 2 * kStages * T::KV_BYTES;
+  const uint32_t full0 = qbar + 8, empty0 = full0 + 8 * kStages;  // stage s: + 8 s
 
+  const int wg = threadIdx.x / kWG;
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.x * kBQ + warp * 16 + g;  // rows r0 and r0 + 8
-  const __nv_bfloat16* qp =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kp =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vp =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const int q0 = blockIdx.x * T::BQ;
+  const int ntiles = (p.Nk + BK - 1) / BK;
 
-  uint32_t qf[KSTEPS][4];
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
 #pragma unroll
-  for (int s = 0; s < KSTEPS; ++s) {
-    const int c = s * 16 + t * 2;
-    qf[s][0] = load_pair(qp, p.q_sn, r0, c, p.Nq, p.D);
-    qf[s][1] = load_pair(qp, p.q_sn, r0 + 8, c, p.Nq, p.D);
-    qf[s][2] = load_pair(qp, p.q_sn, r0, c + 8, p.Nq, p.D);
-    qf[s][3] = load_pair(qp, p.q_sn, r0 + 8, c + 8, p.Nq, p.D);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4 * T::WGS);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float acc[DT][4];
+  if (wg == T::WGS) {
+    // ---- producer: one thread issues every copy
+    if constexpr (T::WGS == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == T::WGS * kWG) {
+      mbar_expect_tx(qbar, T::Q_BYTES);
 #pragma unroll
-  for (int i = 0; i < DT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};  // per-thread partial row sums (quad-reduced at the end)
-
-  for (int kb = 0; kb < p.Nk; kb += kBK) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < kBK * CHUNKS; i += kThreads) {
-      const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (kb + r < p.Nk && c < p.D) {
-        kv = *reinterpret_cast<const uint4*>(kp + (kb + r) * p.k_sn + c);
-        vv = *reinterpret_cast<const uint4*>(vp + (kb + r) * p.v_sn + c);
-      }
-      *reinterpret_cast<uint4*>(&ks[r * LDS + c]) = kv;
-      *reinterpret_cast<uint4*>(&vs[r * LDS + c]) = vv;
-    }
-    if constexpr (HAS_BIAS) {
-      for (int i = threadIdx.x; i < kBK; i += kThreads)
-        bs[i] = kb + i < p.Nk ? p.bias[b * p.Nk + kb + i] : 0.f;
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys.
-    float s[NT][4];
+      for (int j = 0; j < T::NCB; ++j) tma_load(sq + j * T::BQ * SW, &tq, j * W, q0, h, b, qbar);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(empty0 + 8 * s, (t / kStages - 1) & 1);
+        const uint32_t ks = skv + 2 * s * T::KV_BYTES, vs = ks + T::KV_BYTES, bar = full0 + 8 * s;
+        mbar_expect_tx(bar, 2 * T::KV_BYTES);
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* krow = &ks[(n * 8 + g) * LDS + t * 2];
-#pragma unroll
-      for (int st = 0; st < KSTEPS; ++st) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + st * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + st * 16 + 8);
-        mma_bf16(s[n], qf[st], b0, b1);
+        for (int j = 0; j < T::NCB; ++j) {
+          tma_load(ks + j * BK * SW, &tk, j * W, t * BK, h, b, bar);
+          tma_load(vs + j * BK * SW, &tv, j * W, t * BK, h, b, bar);
+        }
       }
     }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows [q0 + 64 wg, q0 + 64 wg + 64)
+    if constexpr (T::WGS == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int tid = threadIdx.x % kWG, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = q0 + wg * 64 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+    // with a bias the logits stay in natural units (NEG_INF * log2(e) would
+    // overflow); without one they are in log2 units
+    const float unit = HAS_BIAS ? kLog2e : 1.f;
+    const float xscale = HAS_BIAS ? p.scale : p.scale * kLog2e;
+    const float* bias = HAS_BIAS ? p.bias + static_cast<long long>(b) * p.Nk : nullptr;
 
-    float mt[2] = {-INFINITY, -INFINITY};
+    // S accumulator element i: row r0 + 8 ((i >> 1) & 1), column 8 (i / 4) + 2 t4 + (i & 1)
+    float sacc[BK / 2], oacc[DP / 2];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+    for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + t * 2 + (e & 1);
-        float x = s[n][e] * p.scale;
-        if constexpr (HAS_BIAS) x += bs[col];
-        if (kb + col >= p.Nk) x = -INFINITY;
-        s[n][e] = x;
-        mt[e >> 1] = fmaxf(mt[e >> 1], x);
+    for (int i = 0; i < DP / 2; ++i) oacc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};  // per-thread partial row sums (quad-reduced at the end)
+
+    mbar_wait(qbar, 0);
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % kStages, kb = t * BK;
+      const uint32_t ks = skv + 2 * s * T::KV_BYTES, vs = ks + T::KV_BYTES;
+      mbar_wait(full0 + 8 * s, (t / kStages) & 1);
+
+      // S = Q K^T: both K-major; a 16-deep step inside a swizzle row is a
+      // 32-byte start offset, the next column block the next stretch
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int c = kk * 16;
+        const uint64_t da =
+            smem_desc(sq + (c / W) * T::BQ * SW + wg * 64 * SW + (c % W) * 2, 16, 8 * SW, T::kLayout);
+        const uint64_t db = smem_desc(ks + (c / W) * BK * SW + (c % W) * 2, 16, 8 * SW, T::kLayout);
+        wgmma_ss(sacc, da, db, kk > 0);
       }
+      wgmma_commit();
+      wgmma_wait_all();
+      keep(sacc);
+
+      const bool ragged = kb + BK > p.Nk;
+      float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int col = kb + (i / 4) * 8 + t4 * 2 + (i & 1);
+        float x;
+        if constexpr (HAS_BIAS)
+          x = fmaf(sacc[i], xscale, col < p.Nk ? __ldg(bias + col) : 0.f);
+        else
+          x = sacc[i] * xscale;
+        if (ragged && col >= p.Nk) x = -INFINITY;
+        sacc[i] = x;
+        mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], x);
+      }
+      float alpha[2], msafe[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+        const float mn = fmaxf(m[r], mt[r]);
+        msafe[r] = mn == -INFINITY ? 0.f : mn;
+        alpha[r] = ex2((m[r] - msafe[r]) * unit);
+        m[r] = mn;
+        l[r] *= alpha[r];
+      }
+      // P, rounded to bf16: n-tiles 2j and 2j + 1 of S are the A fragment
+      // of the j-th 16-key step of P V
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = 8 * j + 4 * half;
+          const float p0 = ex2((sacc[i] - msafe[0]) * unit), p1 = ex2((sacc[i + 1] - msafe[0]) * unit);
+          const float p2 = ex2((sacc[i + 2] - msafe[1]) * unit), p3 = ex2((sacc[i + 3] - msafe[1]) * unit);
+          l[0] += p0 + p1;
+          l[1] += p2 + p3;
+          pa[j][2 * half] = pack_bf16(p0, p1);
+          pa[j][2 * half + 1] = pack_bf16(p2, p3);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        oacc[4 * n] *= alpha[0];
+        oacc[4 * n + 1] *= alpha[0];
+        oacc[4 * n + 2] *= alpha[1];
+        oacc[4 * n + 3] *= alpha[1];
+      }
+
+      // O += P V: V is MN-major (d contiguous); a 16-key step is 16 rows of
+      // the tile, the next column block of d is LBO away
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j)
+        wgmma_rs(oacc, pa[j], smem_desc(vs + j * 16 * SW, BK * SW, 8 * SW, T::kLayout));
+      wgmma_commit();
+      wgmma_wait_all();
+      keep(oacc);
+      keep(pa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);
     }
-    float alpha[2], msafe[2];
+
+    float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-      const float mn = fmaxf(m[r], mt[r]);
-      msafe[r] = mn == -INFINITY ? 0.f : mn;
-      alpha[r] = exp2f((m[r] - msafe[r]) * kLog2e);
-      m[r] = mn;
-      l[r] *= alpha[r];
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = l[r] == 0.f ? 0.f : 1.f / l[r];
     }
+    __nv_bfloat16* op = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row >= p.Nq) continue;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = exp2f((s[n][e] - msafe[e >> 1]) * kLog2e);
-        l[e >> 1] += pe;
-        s[n][e] = pe;
+      for (int n = 0; n < DP / 8; ++n) {
+        const int c = n * 8 + t4 * 2;
+        if (c < p.D)
+          *reinterpret_cast<uint32_t*>(op + row * p.o_sn + c) =
+              pack_bf16(oacc[4 * n + 2 * r] * inv[r], oacc[4 * n + 2 * r + 1] * inv[r]);
       }
-    }
-#pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      acc[d][0] *= alpha[0];
-      acc[d][1] *= alpha[0];
-      acc[d][2] *= alpha[1];
-      acc[d][3] *= alpha[1];
-    }
-
-    // O += P V; the score accumulators of n-tiles 2j, 2j+1 are exactly the
-    // A fragment of k-step j. P is rounded to bf16 here.
-#pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-      const __nv_bfloat16* v0 = &vs[(j * 16 + t * 2) * LDS + g];
-#pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        const __nv_bfloat16* vc = v0 + d * 8;
-        const uint32_t b0 = pack_raw(vc[0], vc[LDS]);
-        const uint32_t b1 = pack_raw(vc[8 * LDS], vc[9 * LDS]);
-        mma_bf16(acc[d], a, b0, b1);
+      if constexpr (WANT_LSE) {
+        if (t4 == 0) {
+          const float lg = fmaxf(l[r], 1e-37f);
+          p.lse[(static_cast<long long>(b) * p.H + h) * p.Nq + row] =
+              HAS_BIAS ? m[r] + logf(lg) : (m[r] + log2f(lg)) * kLn2;
+        }
       }
-    }
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    inv[r] = l[r] == 0.f ? 0.f : 1.f / l[r];
-  }
-  __nv_bfloat16* op = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + 8 * r;
-    if (row >= p.Nq) continue;
-#pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      const int c = d * 8 + t * 2;
-      if (c < p.D) {
-        *reinterpret_cast<uint32_t*>(op + row * p.o_sn + c) =
-            pack_bf16(acc[d][2 * r] * inv[r], acc[d][2 * r + 1] * inv[r]);
-      }
-    }
-    if constexpr (WANT_LSE) {
-      if (t == 0)
-        p.lse[(static_cast<long long>(b) * p.H + h) * p.Nq + row] =
-            m[r] + logf(fmaxf(l[r], 1e-37f));
     }
   }
 }
@@ -325,24 +589,84 @@ __global__ void __launch_bounds__(kSQ) flash_fwd_f32(Params p) {
 // ---------------------------------------------------------------------------
 // dispatch
 
-template <int DP, bool HAS_BIAS, bool WANT_LSE>
-void launch(const Params& p, int is_bf16, cudaStream_t stream) {
-  if (is_bf16) {
-    dim3 grid((p.Nq + kBQ - 1) / kBQ, p.B * p.H);
-    flash_fwd_bf16<DP, HAS_BIAS, WANT_LSE><<<grid, kThreads, 0, stream>>>(p);
-  } else {
-    dim3 grid((p.Nq + kSQ - 1) / kSQ, p.B * p.H);
-    flash_fwd_f32<DP, HAS_BIAS, WANT_LSE><<<grid, kSQ, 0, stream>>>(p);
+// cuTensorMapEncodeTiled is a driver-API function; it is reached through the
+// runtime's entry-point query, so the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                                       &status);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status);
+#endif
+    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
   }
+  return fn;
+}
+
+// A rank-4 (D, N, H, B) map over a (B, H, N, D) bf16 view with element
+// strides (sb, sh, sn, 1): boxes of W x rows, swizzled by one W-wide row,
+// zero fill outside the tensor.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int H, int N, int D, long long sb, long long sh,
+              long long sn, int W, int rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  // a dimension of size 1 is never stepped along; its stride may be anything
+  auto stride = [](long long s, int size) { return static_cast<cuuint64_t>(size == 1 ? 16 : 2 * s); };
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {stride(sn, N), stride(sh, H), stride(sb, B)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(W), static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : W == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP, bool HAS_BIAS, bool WANT_LSE>
+cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
+  using T = Tile<DP>;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, p.q, p.B, p.H, p.Nq, p.D, p.q_sb, p.q_sh, p.q_sn, T::W, T::BQ) ||
+      !make_map(&tk, p.k, p.B, p.H, p.Nk, p.D, p.k_sb, p.k_sh, p.k_sn, T::W, T::BK) ||
+      !make_map(&tv, p.v, p.B, p.H, p.Nk, p.D, p.v_sb, p.v_sh, p.v_sn, T::W, T::BK))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_bf16<DP, HAS_BIAS, WANT_LSE>;
+  static bool sized = false;  // dynamic shared memory above 48 KB is opted into once per instantiation
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return err;
+    sized = true;
+  }
+  dim3 grid((p.Nq + T::BQ - 1) / T::BQ, p.B * p.H);
+  kernel<<<grid, T::THREADS, T::SMEM, stream>>>(tq, tk, tv, p);
+  return cudaSuccess;
+}
+
+template <int DP, bool HAS_BIAS, bool WANT_LSE>
+cudaError_t launch(const Params& p, int is_bf16, cudaStream_t stream) {
+  if (is_bf16) return launch_bf16<DP, HAS_BIAS, WANT_LSE>(p, stream);
+  dim3 grid((p.Nq + kSQ - 1) / kSQ, p.B * p.H);
+  flash_fwd_f32<DP, HAS_BIAS, WANT_LSE><<<grid, kSQ, 0, stream>>>(p);
+  return cudaSuccess;
 }
 
 template <int DP>
-void launch_dp(const Params& p, int is_bf16, cudaStream_t stream) {
+cudaError_t launch_dp(const Params& p, int is_bf16, cudaStream_t stream) {
   const bool has_bias = p.bias != nullptr, want_lse = p.lse != nullptr;
-  if (has_bias && want_lse) launch<DP, true, true>(p, is_bf16, stream);
-  else if (has_bias) launch<DP, true, false>(p, is_bf16, stream);
-  else if (want_lse) launch<DP, false, true>(p, is_bf16, stream);
-  else launch<DP, false, false>(p, is_bf16, stream);
+  if (has_bias && want_lse) return launch<DP, true, true>(p, is_bf16, stream);
+  if (has_bias) return launch<DP, true, false>(p, is_bf16, stream);
+  if (want_lse) return launch<DP, false, true>(p, is_bf16, stream);
+  return launch<DP, false, false>(p, is_bf16, stream);
 }
 
 }  // namespace
@@ -357,9 +681,22 @@ int flash_fwd_supports(int d) {
                         dp == 80 || dp == 160);
 }
 
-// Launches on `stream` and returns cudaGetLastError(); 1 (cudaErrorInvalidValue)
-// for an unsupported head dim. All strides are in elements; the head dim is
-// contiguous.
+// Dynamic shared memory of one bf16 block at head dim d (supported d only).
+int flash_fwd_smem_bytes(int d) {
+  switch ((d + 15) / 16 * 16) {
+    case 16: return Tile<16>::SMEM;
+    case 32: return Tile<32>::SMEM;
+    case 48: return Tile<48>::SMEM;
+    case 64: return Tile<64>::SMEM;
+    case 80: return Tile<80>::SMEM;
+    default: return Tile<160>::SMEM;
+  }
+}
+
+// Launches on `stream` and returns the CUDA error code: 1
+// (cudaErrorInvalidValue) for an unsupported head dim or operands that no
+// tensor map can describe, else cudaGetLastError(). All strides are in
+// elements; the head dim is contiguous.
 int flash_fwd(const void* q, const void* k, const void* v, const float* bias,
               void* o, float* lse, int B, int H, int Nq, int Nk, int D,
               long long q_sb, long long q_sh, long long q_sn, long long k_sb,
@@ -371,14 +708,16 @@ int flash_fwd(const void* q, const void* k, const void* v, const float* bias,
            q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn, o_sb, o_sh,
            o_sn, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   switch ((D + 15) / 16 * 16) {
-    case 16: launch_dp<16>(p, is_bf16, s); break;
-    case 32: launch_dp<32>(p, is_bf16, s); break;
-    case 48: launch_dp<48>(p, is_bf16, s); break;
-    case 64: launch_dp<64>(p, is_bf16, s); break;
-    case 80: launch_dp<80>(p, is_bf16, s); break;
-    default: launch_dp<160>(p, is_bf16, s); break;
+    case 16: err = launch_dp<16>(p, is_bf16, s); break;
+    case 32: err = launch_dp<32>(p, is_bf16, s); break;
+    case 48: err = launch_dp<48>(p, is_bf16, s); break;
+    case 64: err = launch_dp<64>(p, is_bf16, s); break;
+    case 80: err = launch_dp<80>(p, is_bf16, s); break;
+    default: err = launch_dp<160>(p, is_bf16, s); break;
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and becomes one shared
 library, built on first use into ``_build/`` (ignored by git) under a name
 that carries a hash of the source, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Nothing here runs at import time.
+unchanged one is loaded as it is. The assembler's report (``-Xptxas -v``:
+registers, shared memory and spills of every kernel) is kept beside the
+library. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -46,12 +48,21 @@ def build(name: str) -> str:
         return out
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src]
+    cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+    with open(out + ".ptxas.txt", "w") as f:
+        f.write(proc.stdout)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out
+
+
+def ptxas_report(name: str) -> str:
+    """The ``-Xptxas -v`` output of the build of ``csrc/<name>.cu`` (built
+    here if it is not yet)."""
+    with open(build(name) + ".ptxas.txt") as f:
+        return f.read()
 
 
 def load(name: str) -> ctypes.CDLL:

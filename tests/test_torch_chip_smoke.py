@@ -7,6 +7,10 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
+import pytest
+import torch
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(ROOT, "chip_smoke.py")
 
@@ -68,3 +72,40 @@ def test_chip_smoke_wires_every_phase_into_main():
     assert "xl_tiny" in inspect.getsource(smoke.phase_tiny)
     last = source.rstrip().splitlines()
     assert '"ok": True' in "".join(last[-4:])  # the result object is printed last
+
+
+def _source_constant(name, constant):
+    import re
+
+    with open(os.path.join(ROOT, "image_editing_framework_torch", "csrc", name)) as f:
+        text = f.read()
+    return int(re.search(rf"constexpr int {constant} = (\d+);", text).group(1)), text
+
+
+def test_chip_smoke_key_tiles_are_the_kernels():
+    """The planted faults emulate tiles of the kernels they check: the
+    forward's key tiles (128 up to d = 80, 64 at d = 160) and the backward's
+    64 are read from the CUDA sources."""
+    smoke = _load_script()
+    fwd, fwd_text = _source_constant("flash_fwd.cu", "kBK")
+    wide, _ = _source_constant("flash_fwd.cu", "kBKWide")
+    bwd, _ = _source_constant("flash_bwd.cu", "kTile")
+    assert (smoke.FWD_KEY_TILE, smoke.FWD_KEY_TILE_WIDE, smoke.BWD_KEY_TILE) == (fwd, wide, bwd)
+    assert "DP > 80 ? kBKWide : kBK" in fwd_text
+    assert [smoke.fwd_key_tile(d) for d in (16, 40, 64, 80, 160)] == [fwd] * 4 + [wide]
+
+
+@pytest.mark.parametrize("nq,nk,d", [(200, 300, 64), (130, 200, 160)])
+def test_planted_faults_exceed_the_limit_at_the_new_tile(nq, nk, d):
+    """At the forward's key tile, a skipped last tile and a missing
+    accumulator rescale each move O by more than ``parity_atol``."""
+    from image_editing_framework_torch.ops import flash_attention as fa
+
+    smoke = _load_script()
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, n, d).astype(np.float32)).to(torch.bfloat16) for n in (nq, nk, nk))
+    ref = fa.flash_attention_reference(q, k, v)
+    faults = smoke.fault_readings(q, k, v, ref)
+    tol = fa.parity_atol(ref)
+    assert nk > smoke.fwd_key_tile(d)
+    assert faults["skipped_key_tile"] > tol and faults["no_acc_rescale"] > tol, (faults, tol)

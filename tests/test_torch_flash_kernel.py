@@ -29,7 +29,12 @@ def cuda_device():
 @pytest.mark.parametrize(
     "b,h,nq,nk,d,with_bias,split",
     [(2, 8, 1024, 1024, 40, False, True), (2, 8, 256, 256, 80, False, True), (1, 8, 64, 64, 160, False, False),
-     (2, 3, 130, 1000, 64, True, False), (2, 2, 70, 77, 16, True, True), (1, 2, 33, 50, 32, False, False)],
+     (2, 3, 130, 1000, 64, True, False), (2, 2, 70, 77, 16, True, True), (1, 2, 33, 50, 32, False, False),
+     # Nq off the 128-query block; Nk below one key tile (128, or 64 at d = 160) and not a multiple of 8
+     (2, 3, 200, 100, 64, False, True), (1, 2, 130, 45, 160, True, False), (2, 2, 257, 127, 80, True, True),
+     # SDXL's two sites as head-split views; d = 40 at 4096 tokens, d = 160 at 256
+     (4, 10, 4096, 4096, 64, False, True), (4, 20, 1024, 1024, 64, False, True),
+     (2, 8, 4096, 4096, 40, False, True), (4, 8, 256, 256, 160, False, True)],
 )
 def test_flash_kernel_matches_plain_version(cuda_device, dtype, b, h, nq, nk, d, with_bias, split):
     """The CUDA kernel against its plain version on the card, within
@@ -57,6 +62,22 @@ def test_flash_kernel_matches_plain_version(cuda_device, dtype, b, h, nq, nk, d,
     assert tfa.flash_attention.launches == before + 1
     torch.testing.assert_close(out.float(), ref.float(), atol=tfa.parity_atol(ref), rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 64, 160])
+def test_flash_kernel_is_deterministic(cuda_device, d):
+    """Each block owns its rows and sums its key tiles in one order: a rerun
+    gives the same bits, output and lse, with and without a bias."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v = (split_heads(torch.randn(2, 1000, 4 * d, device=cuda_device, dtype=torch.bfloat16, generator=g), 4)
+               for _ in range(3))
+    bias = torch.zeros(2, 1000, device=cuda_device)
+    bias[:, 300:500] = tfa.NEG_INF
+    for b in (None, bias):
+        first = tfa.flash_attention(q, k, v, b, return_lse=True)
+        second = tfa.flash_attention(q, k, v, b, return_lse=True)
+        assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 GRID = [(2, 8, 1024, 1024, 40, False, True), (2, 8, 256, 256, 80, False, True), (1, 8, 64, 64, 160, False, False),

@@ -22,6 +22,13 @@ from image_editing_framework_tpu.pipelines import tiny_pipeline as jax_tiny_pipe
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 
+# The suite runs under pytest-xdist with several workers on one machine; with
+# torch's default of one intra-op thread per core in every worker, the
+# workers' threads contend for the cores and the tiny models' many small ops
+# run 20-100x slower than alone. One thread per worker keeps each test at its
+# single-process speed. (Every worker imports this module while collecting.)
+torch.set_num_threads(1)
+
 
 def shared_pipelines(num_steps: int = 4, seed: int = 0, model_type: str = "sd"):
     """(jax_pipe, torch_pipe) with the same tiny-pipeline weights; the port's
