@@ -5,17 +5,18 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, one line of output each (any failure exits non-zero):
   1. device: card name and power limit, torch/CUDA versions, kernel build
      (every CUDA source of the port, one nvcc each, all started together),
-     then one line per forward instantiation with its registers, shared
-     memory and spills from the build's ``-Xptxas -v`` report (a bf16
-     instantiation that spills fails the phase);
+     then one line per forward and backward instantiation with its
+     registers, shared memory and spills from the build's ``-Xptxas -v``
+     report (a bf16 instantiation that spills fails the phase);
   2. kernels: each kernel against its plain PyTorch version on the card at
      its paths' shapes (SD1.5's and SDXL's), as the head-split views the
      UNet passes (bf16 and f32), and at edge cases (padded Nk, Nq off the tile, NEG_INF bias
      segments, fully masked rows, lse), within ``parity_atol`` (forward)
      and ``grad_parity_atol`` (backward); at the path's shapes also the
-     kernel's, plain version's and library call's times, the bound, and the
-     readings of planted faults (emulated in plain PyTorch, at the key tile
-     of the kernel they check) that the bf16 limit must reject; the forward
+     kernel's, plain version's and library call's times (the backward's
+     also on the device: CUDA-graph replays, SDPA's under the profiler), the bound, and the
+     readings of planted faults (emulated in plain PyTorch, at the tile of
+     the kernel they check) that the bf16 limit must reject; the forward
      wrapper's host µs per call at a batch-1 SDXL site;
      probe: the tile-shape probe kernel against its plain version for
      every layout and head dim, every block's value, then its timed table
@@ -77,7 +78,10 @@ PEAK_F32 = 67e12  # CUDA-core f32 FLOP/s
 HBM = 3.35e12  # bytes/s
 FWD_KEY_TILE = 128  # keys per tile of the bf16 forward up to d = 80 (csrc/flash_fwd.cu kBK)
 FWD_KEY_TILE_WIDE = 64  # ... at d = 160 (csrc/flash_fwd.cu kBKWide)
-BWD_KEY_TILE = 64  # keys (and queries) per tile of the bf16 backward (csrc/flash_bwd.cu kTile)
+BWD_DQ_KEY_TILE = 128  # keys per streamed tile of the bf16 dQ kernel up to d = 80 (csrc/flash_bwd.cu kDqBK)
+BWD_DQ_KEY_TILE_WIDE = 64  # ... at d = 160 (kDqBKWide)
+BWD_DKV_QUERY_TILE = 64  # queries per streamed tile of the bf16 dK/dV kernel up to d = 80 (kDkvBQ)
+BWD_DKV_QUERY_TILE_WIDE = 32  # ... at d = 160 (kDkvBQWide)
 PROFILE_REPS = 10
 
 
@@ -85,6 +89,18 @@ def fwd_key_tile(d):
     """Keys per tile of the bf16 forward at head dim d (csrc/flash_fwd.cu
     Tile<DP>::BK)."""
     return FWD_KEY_TILE if d <= 80 else FWD_KEY_TILE_WIDE
+
+
+def bwd_dq_key_tile(d):
+    """Keys per tile of the bf16 dQ kernel at head dim d (csrc/flash_bwd.cu
+    DqTile<DP>::BK)."""
+    return BWD_DQ_KEY_TILE if d <= 80 else BWD_DQ_KEY_TILE_WIDE
+
+
+def bwd_dkv_query_tile(d):
+    """Queries per tile of the bf16 dK/dV kernel at head dim d
+    (csrc/flash_bwd.cu DkvTile<DP>::BQ)."""
+    return BWD_DKV_QUERY_TILE if d <= 80 else BWD_DKV_QUERY_TILE_WIDE
 
 
 def emit(tag, **fields):
@@ -187,6 +203,31 @@ def forward_instances():
     return rows, warnings
 
 
+def backward_instances():
+    """Each instantiation of the backward kernels (dQ and dK/dV, bf16 and
+    f32): padded head dim, bias, registers, spills and (bf16) dynamic shared
+    memory, from the build's ``-Xptxas -v`` report; ptxas warnings besides.
+    The bf16 kernels' registers are those at launch: their consumer
+    warpgroup raises its own to 232 (setmaxnreg) where two blocks share an
+    SM."""
+    import ctypes
+
+    from image_editing_framework_torch.ops import _cuda
+
+    report = _cuda.ptxas_report("flash_bwd")
+    smem = _cuda.load("flash_bwd").flash_bwd_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    rows = []
+    for name, info in ptxas_entries(report).items():
+        m = re.search(r"bwd_(dq|dkv)_(bf16|f32)ILi(\d+)ELb([01])E", name)
+        if m:
+            which, kind, dp = m.group(1), m.group(2), int(m.group(3))
+            rows.append(dict(kernel=f"flash_bwd_{which}_{kind}", dp=dp, bias=m.group(4) == "1",
+                             smem_bytes=smem(dp, int(which == "dkv")) if kind == "bf16" else None, **info))
+    warnings = [line.strip() for line in report.splitlines() if "warning" in line.lower()]
+    return rows, warnings
+
+
 def phase_device():
     from image_editing_framework_torch.ops import _cuda
 
@@ -201,15 +242,20 @@ def phase_device():
     emit("device", card=card_line(), torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), build_s=round(time.perf_counter() - t0, 3),
          build_s_each={k: round(v, 3) for k, v in each.items()})
-    rows, warnings = forward_instances()
-    bf16 = [r for r in rows if r["kernel"] == "flash_fwd_bf16"]
-    for row in rows:
-        emit("ptxas", **row)
-    emit("ptxas_warnings", source="flash_fwd", warnings=warnings)
-    spilled = [r for r in bf16 if r.get("spill_stores") or r.get("spill_loads")]
-    if len(bf16) != 24 or spilled:
-        raise AssertionError(f"{len(bf16)} bf16 forward instantiations (24 expected); spills in {spilled}")
-    return bf16
+    found = {}
+    # bf16 instantiations: the forward's 6 head dims x bias x lse; the
+    # backward's 5 (d = 40 runs the 64-column kernels) x bias x (dQ, dK/dV)
+    for source, read, count in (("flash_fwd", forward_instances, 24), ("flash_bwd", backward_instances, 20)):
+        rows, warnings = read()
+        bf16 = [r for r in rows if r["kernel"].endswith("_bf16")]
+        for row in rows:
+            emit("ptxas", **row)
+        emit("ptxas_warnings", source=source, warnings=warnings)
+        spilled = [r for r in bf16 if r.get("spill_stores") or r.get("spill_loads")]
+        if len(bf16) != count or spilled:
+            raise AssertionError(f"{len(bf16)} bf16 {source} instantiations ({count} expected); spills in {spilled}")
+        found[source] = bf16
+    return found
 
 
 def fault_readings(q, k, v, ref):
@@ -332,16 +378,18 @@ def phase_kernels(gen):
 def bwd_fault_readings(q, k, v, do, o, lse, ref):
     """max|grad - ref| per output of three broken backward kernels, emulated
     in plain PyTorch on the same bf16 inputs: di left out (as if O were 0),
-    one BWD_KEY_TILE-key tile skipped in dQ (its keys' P set to 0), one
-    query tile of that size skipped in dK/dV (its queries' P set to 0). Each
-    fault names the outputs it reaches."""
+    dQ's last key tile skipped (its keys' P set to 0; the tile of
+    ``bwd_dq_key_tile``), dK/dV's last query tile skipped (its queries' P
+    set to 0; the tile of ``bwd_dkv_query_tile``). Each fault names the
+    outputs it reaches."""
     from image_editing_framework_torch.ops import flash_attention as fa
 
-    nq, nk = q.shape[2], k.shape[2]
+    nq, nk, d = q.shape[2], k.shape[2], q.shape[-1]
+    key_tile, query_tile = bwd_dq_key_tile(d), bwd_dkv_query_tile(d)
     key_bias = torch.zeros(q.shape[0], nk, device=q.device)
-    key_bias[:, nk - BWD_KEY_TILE:] = float("-inf")
+    key_bias[:, (nk - 1) // key_tile * key_tile:] = float("-inf")
     lse_skip = lse.clone()
-    lse_skip[:, :, max(0, nq - BWD_KEY_TILE):] = float("-inf")
+    lse_skip[:, :, (nq - 1) // query_tile * query_tile:] = float("-inf")
     faults = {
         "no_di": (fa.flash_attention_bwd_reference(q, k, v, None, torch.zeros_like(o), do, lse), ("dq", "dk")),
         "skipped_key_tile_dq": (fa.flash_attention_bwd_reference(q, k, v, key_bias, o, do, lse), ("dq",)),
@@ -360,10 +408,11 @@ def phase_bwd_kernels(gen):
     for SD1.5, 69 for SDXL)."""
     from image_editing_framework_torch.ops import flash_attention as fa
     from image_editing_framework_torch.ops.attention import split_heads
+    from image_editing_framework_torch.tools.bench_flash_fwd import busy_ms, graph_ms
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     worst = {dtype: {"dq": 0.0, "dkv": 0.0} for dtype in (torch.bfloat16, torch.float32)}
-    keys = ("ms", "plain_ms", "library_ms", "flops", "bytes")
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "flops", "bytes")
     sums = {model: {kernel: dict.fromkeys(keys, 0.0) for kernel in ("dq", "dkv", "all")} for model in GRAD_SHAPES}
 
     def check(dtype, b, h, nq, nk, d, bias=None, timed=False, sites=0, zero_batch=None, model=None):
@@ -407,29 +456,33 @@ def phase_bwd_kernels(gen):
             di = fa._bwd_di(o, do)
             qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
             out = sdpa(qg, kg, vg)
-            library_ms = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True))
+            library = lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)  # noqa: E731
+            library_ms, library_device_ms = cuda_ms(library), busy_ms(library)
             plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, None, o, do, lse))
-            timing = {
-                "dq": cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, None, do, lse, di, scale)),
-                "dkv": cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, None, do, lse, di, scale)),
-                "all": cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, None, o, do, lse)),
+            calls = {
+                "dq": lambda: fa.flash_bwd_dq(q, k, v, None, do, lse, di, scale),
+                "dkv": lambda: fa.flash_bwd_dkv(q, k, v, None, do, lse, di, scale),
+                "all": lambda: fa.flash_attention_bwd(q, k, v, None, o, do, lse),
             }
-            for kernel, ms in timing.items():
+            for kernel, fn in calls.items():
+                ms, device_ms = cuda_ms(fn), graph_ms(fn)
                 flops, nbytes = bwd_work(b, h, nq, nk, d, dtype, kernel)
                 bound, by = bound_ms(flops, nbytes, dtype)
-                row[kernel] = dict(ms=ms, bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
+                row[kernel] = dict(ms=ms, device_ms=device_ms, bound_ms=bound, bound_by=by, flops=flops,
+                                   bytes=nbytes)
                 if dtype == torch.bfloat16:
-                    for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                    for key, val in (("ms", ms), ("device_ms", device_ms), ("plain_ms", plain_ms),
+                                     ("library_ms", library_ms), ("library_device_ms", library_device_ms),
                                      ("flops", flops), ("bytes", nbytes)):
                         sums[model][kernel][key] += sites * val
-            row.update(plain_ms=plain_ms, library_ms=library_ms)
+            row.update(plain_ms=plain_ms, library_ms=library_ms, library_device_ms=library_device_ms)
         emit("kernel", name="flash_bwd", **row)
 
     for dtype in (torch.bfloat16, torch.float32):
         for model, shapes in GRAD_SHAPES.items():
             for n, d, h, sites in shapes:
                 check(dtype, 1, h, n, n, d, timed=model == "sd" or dtype == torch.bfloat16, sites=sites, model=model)
-        for nk in (77, 1000):  # Nq and Nk off the 64-row tile
+        for nk in (77, 1000):  # Nq and Nk off the 64-row blocks and both kernels' streamed tiles
             check(dtype, 2, HEADS, 130, nk, 40)
         bias = torch.zeros(2, 1000, device="cuda")
         bias[:, 200:600] = fa.NEG_INF  # a masked segment
@@ -812,10 +865,13 @@ def main() -> int:
              flash_share=fwd["ms"] / unet_ms[model], flash_bound_ms_per_cfg4_forward=fwd["bound_ms"],
              sdpa_ms_per_cfg4_forward=fwd["library_ms"], bwd_ms_per_inner_iteration=bwd["ms"],
              bwd_bound_ms_per_inner_iteration=bwd["bound_ms"], bwd_bound_by=bwd["bound_by"],
-             sdpa_bwd_ms_per_inner_iteration=bwd["library_ms"])
+             sdpa_bwd_ms_per_inner_iteration=bwd["library_ms"], bwd_device_ms_per_inner_iteration=bwd["device_ms"],
+             sdpa_bwd_device_ms_per_inner_iteration=bwd["library_device_ms"])
 
-    def at(part):
-        return {key: part[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    def at(part, *more):
+        return {key: part[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms") + more}
+
+    device = ("device_ms", "library_device_ms")  # the backward's, from CUDA-graph replays and the profiler
 
     tpu = "image_editing_framework_tpu/ops/flash_attention.py"
     work = {"sd": "the 15 self-attention sites an SD1.5 512² NTI gradient flows through, batch 1, bf16 (one inner "
@@ -827,9 +883,27 @@ def main() -> int:
         "launches": sum(counts[i] for counts in bwd_launches.values()),
         "launches_by_path": {"nti_path": bwd_launches["sd"][i], "xl_nti_path": bwd_launches["xl"][i]},
         "max_abs_err": bwd_worst[torch.bfloat16][kernel], "max_abs_err_f32": bwd_worst[torch.float32][kernel],
-        **at(bwd_sums["sd"][kernel]), "work": work["sd"], "at_xl": dict(at(bwd_sums["xl"][kernel]), work=work["xl"]),
+        **at(bwd_sums["sd"][kernel], *device), "work": work["sd"],
+        "at_xl": dict(at(bwd_sums["xl"][kernel], *device), work=work["xl"]),
         "plain_and_library": "the whole backward (dq, dk, dv): the plain version and SDPA's backward",
-    } for i, (kernel, line, line_t) in enumerate((("dq", 387, 540), ("dkv", 430, 593)))]
+        "design": design,
+        "bf16_instances": [{key: r.get(key) for key in ("dp", "bias", "registers", "smem_bytes", "spill_stores",
+                                                         "spill_loads")}
+                           for r in instances["flash_bwd"] if r["kernel"] == f"flash_bwd_{kernel}_bf16"],
+    } for i, (kernel, line, line_t, design) in enumerate((
+        ("dq", 387, 540, "bf16: wgmma (S = Q·Kᵀ and dP = dO·Vᵀ SS, P's exponentials while dP runs; dQ += dS·K "
+                         "RS with dS from registers, K MN-major), K/V tiles by TMA over rank-4 (D, N, H, B) tensor "
+                         "maps into a 2-stage ring on mbarriers, Q/dO resident; one producer warp (it also copies "
+                         "the keys' bias), one consumer warpgroup of 64 queries per block, two blocks an SM "
+                         "(setmaxnreg 24/232; one at d = 160); 128-key tiles, 64 at d = 160; d = 40 on the "
+                         "64-column kernel; no atomics; f32: CUDA cores"),
+        ("dkv", 430, 593, "bf16: wgmma (Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ SS; dV += Pᵀ·dO and dK += dSᵀ·Q RS from "
+                          "registers, dO and Q MN-major from the same swizzled tile), Q/dO tiles by TMA over rank-4 "
+                          "tensor maps into a 2-stage ring on mbarriers with their lse/di slices (copied by the "
+                          "producer warp's lanes), K/V resident; one consumer warpgroup of 64 keys per block, two "
+                          "blocks an SM (setmaxnreg 24/232; one at d = 160); 64-query tiles, 32 at d = 160; d = 40 "
+                          "on the 64-column kernel; no atomics; f32: CUDA cores"),
+    ))]
     fwd = {
         "name": "flash_fwd", "route": "cuda", "source": "image_editing_framework_torch/csrc/flash_fwd.cu",
         "replaces": f"{tpu}:76", "also_replaces": f"{tpu}:205",
@@ -845,7 +919,8 @@ def main() -> int:
                   "24/240; 128-key tiles, 64 at d = 160; f32: CUDA cores",
         "enqueue_us_b1_1024_d64": enqueue,
         "bf16_instances": [{key: r.get(key) for key in ("dp", "bias", "lse", "registers", "smem_bytes",
-                                                         "spill_stores", "spill_loads")} for r in instances],
+                                                         "spill_stores", "spill_loads")}
+                           for r in instances["flash_fwd"]],
     }
     mma_probe = {
         "name": "mma_probe", "route": "cuda", "source": "image_editing_framework_torch/csrc/mma_probe.cu",

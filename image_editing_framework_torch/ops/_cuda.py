@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and becomes one shared
 library, built on first use into ``_build/`` (ignored by git) under a name
-that carries a hash of the source, so an edited source is rebuilt and an
-unchanged one is loaded as it is. The assembler's report (``-Xptxas -v``:
+that carries a hash of the source and of the headers beside it
+(``csrc/*.cuh``), so an edited source or header is rebuilt and an unchanged
+one is loaded as it is. The assembler's report (``-Xptxas -v``:
 registers, shared memory and spills of every kernel) is kept beside the
 library. Nothing here runs at import time.
 """
@@ -34,10 +35,15 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Tuple[str, str]:
+    """The source and its library's path, named by a hash of the source and
+    of every header in ``csrc/`` (which a source may include)."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return src, os.path.join(BUILD, f"lib{name}_{digest}.so")
+    headers = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    digest = hashlib.sha256()
+    for path in [src] + headers:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return src, os.path.join(BUILD, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
 def build(name: str) -> str:

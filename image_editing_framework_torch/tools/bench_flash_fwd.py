@@ -77,20 +77,26 @@ def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
     return start.elapsed_time(end) / (reps * calls)
 
 
-def busy_ms(fn, reps: int = 5) -> float:
+def busy_ms(fn, reps: int = 5, tries: int = 3) -> float:
     """Device busy ms per call of fn(): the sum of kernel times under
-    torch.profiler."""
+    torch.profiler. A profile that recorded no device time (seen once among
+    many profiles in one process) is taken again, up to ``tries`` times,
+    then raises: fn() always launches kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.self_device_time_total for e in kernels) / reps / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kernels) / reps / 1e3
+        if busy > 0:
+            return busy
+    raise RuntimeError(f"torch.profiler recorded no device time in {tries} profiles")
 
 
 def end_to_end(label: str) -> list:

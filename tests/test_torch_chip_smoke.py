@@ -83,16 +83,25 @@ def _source_constant(name, constant):
 
 
 def test_chip_smoke_key_tiles_are_the_kernels():
-    """The planted faults emulate tiles of the kernels they check: the
-    forward's key tiles (128 up to d = 80, 64 at d = 160) and the backward's
-    64 are read from the CUDA sources."""
+    """The planted faults emulate tiles of the kernels they check, read from
+    the CUDA sources: the forward's key tiles (128 up to d = 80, 64 at
+    d = 160), the dQ kernel's key tiles (128, 64 at d = 160) and the dK/dV
+    kernel's query tiles (64, 32 at d = 160)."""
     smoke = _load_script()
     fwd, fwd_text = _source_constant("flash_fwd.cu", "kBK")
     wide, _ = _source_constant("flash_fwd.cu", "kBKWide")
-    bwd, _ = _source_constant("flash_bwd.cu", "kTile")
-    assert (smoke.FWD_KEY_TILE, smoke.FWD_KEY_TILE_WIDE, smoke.BWD_KEY_TILE) == (fwd, wide, bwd)
+    dq, bwd_text = _source_constant("flash_bwd.cu", "kDqBK")
+    dq_wide, _ = _source_constant("flash_bwd.cu", "kDqBKWide")
+    dkv, _ = _source_constant("flash_bwd.cu", "kDkvBQ")
+    dkv_wide, _ = _source_constant("flash_bwd.cu", "kDkvBQWide")
+    assert (smoke.FWD_KEY_TILE, smoke.FWD_KEY_TILE_WIDE) == (fwd, wide)
+    assert (smoke.BWD_DQ_KEY_TILE, smoke.BWD_DQ_KEY_TILE_WIDE) == (dq, dq_wide)
+    assert (smoke.BWD_DKV_QUERY_TILE, smoke.BWD_DKV_QUERY_TILE_WIDE) == (dkv, dkv_wide)
     assert "DP > 80 ? kBKWide : kBK" in fwd_text
+    assert "DP > 80 ? kDqBKWide : kDqBK" in bwd_text and "DP > 80 ? kDkvBQWide : kDkvBQ" in bwd_text
     assert [smoke.fwd_key_tile(d) for d in (16, 40, 64, 80, 160)] == [fwd] * 4 + [wide]
+    assert [smoke.bwd_dq_key_tile(d) for d in (16, 40, 64, 80, 160)] == [dq] * 4 + [dq_wide]
+    assert [smoke.bwd_dkv_query_tile(d) for d in (16, 40, 64, 80, 160)] == [dkv] * 4 + [dkv_wide]
 
 
 @pytest.mark.parametrize("nq,nk,d", [(200, 300, 64), (130, 200, 160)])
@@ -109,3 +118,25 @@ def test_planted_faults_exceed_the_limit_at_the_new_tile(nq, nk, d):
     tol = fa.parity_atol(ref)
     assert nk > smoke.fwd_key_tile(d)
     assert faults["skipped_key_tile"] > tol and faults["no_acc_rescale"] > tol, (faults, tol)
+
+
+@pytest.mark.parametrize("nq,nk,d", [(200, 300, 64), (130, 200, 160), (300, 260, 40)])
+def test_planted_backward_faults_exceed_the_limit_at_the_new_tiles(nq, nk, d):
+    """At the backward's tiles (dQ's last key tile, dK/dV's last query
+    tile), each planted fault moves every gradient it reaches by more than
+    ``grad_parity_atol``: a missing di (dQ and dK), a skipped key tile (dQ),
+    a skipped query tile (dK and dV)."""
+    from image_editing_framework_torch.ops import flash_attention as fa
+
+    smoke = _load_script()
+    rng = np.random.RandomState(0)
+    q, k, v, do = (torch.from_numpy(rng.randn(1, 2, n, d).astype(np.float32)).to(torch.bfloat16)
+                   for n in (nq, nk, nk, nq))
+    o, lse = fa.flash_attention_reference(q, k, v, return_lse=True)
+    ref = fa.flash_attention_bwd_reference(q, k, v, None, o, do, lse)
+    tols = {name: fa.grad_parity_atol(r) for name, r in zip(("dq", "dk", "dv"), ref)}
+    faults = smoke.bwd_fault_readings(q, k, v, do, o, lse, ref)
+    assert nk > smoke.bwd_dq_key_tile(d) and nq > smoke.bwd_dkv_query_tile(d)
+    assert set(faults) == {"no_di", "skipped_key_tile_dq", "skipped_query_tile_dkv"}
+    for name, reads in faults.items():
+        assert reads and all(err > tols[out] for out, err in reads.items()), (name, reads, tols)

@@ -83,6 +83,19 @@ def test_flash_kernel_is_deterministic(cuda_device, d):
 GRID = [(2, 8, 1024, 1024, 40, False, True), (2, 8, 256, 256, 80, False, True), (1, 8, 64, 64, 160, False, False),
         (2, 3, 130, 1000, 64, True, False), (2, 2, 70, 77, 16, True, True), (1, 2, 33, 50, 32, False, False)]
 
+# The bf16 backward's tiles: 64 output rows per block; dQ streams 128-key
+# tiles (64 at d = 160), dK/dV 64-query tiles (32 at d = 160).
+BWD_CASES = [
+    # Nq and Nk off the 64-row blocks and off both kernels' streamed tiles
+    (2, 3, 200, 300, 64, False, True), (1, 4, 130, 45, 160, True, False), (2, 2, 257, 129, 80, True, True),
+    (1, 3, 100, 190, 40, True, True), (2, 2, 31, 97, 16, False, False), (1, 2, 65, 200, 32, True, True),
+    # SDXL's NTI sites: head-split views, dO in autograd's layout
+    (1, 10, 4096, 4096, 64, False, True), (1, 20, 1024, 1024, 64, False, True),
+    # SD1.5's NTI sites: d = 40, 80 and 160
+    (1, 8, 4096, 4096, 40, False, True), (1, 8, 1024, 1024, 80, False, True),
+    (1, 8, 256, 256, 160, False, True), (1, 8, 64, 64, 160, False, True),
+]
+
 
 def _bwd_inputs(device, dtype, b, h, nq, nk, d, with_bias, split, seed=0):
     """q, k, v, dO (head-split views of (B, N, H*D) projections when
@@ -107,11 +120,12 @@ def _bwd_inputs(device, dtype, b, h, nq, nk, d, with_bias, split, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,h,nq,nk,d,with_bias,split", GRID)
+@pytest.mark.parametrize("b,h,nq,nk,d,with_bias,split", GRID + BWD_CASES)
 def test_flash_bwd_kernels_match_plain_version(cuda_device, dtype, b, h, nq, nk, d, with_bias, split):
     """Both backward kernels against ``flash_attention_bwd_reference`` on the
     same inputs, within ``grad_parity_atol`` per output (bf16: 2^-6 of the
-    largest gradient; f32: 2^-14)."""
+    largest gradient; f32: 2^-14), with dO taken as it comes (no copy):
+    the path shapes, and where the bf16 kernels' tiles end (BWD_CASES)."""
     q, k, v, do, bias, o, lse = _bwd_inputs(cuda_device, dtype, b, h, nq, nk, d, with_bias, split)
     before = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches, tfa.flash_attention_bwd.copies)
     got = tfa.flash_attention_bwd(q, k, v, bias, o, do, lse)
@@ -126,9 +140,11 @@ def test_flash_bwd_kernels_match_plain_version(cuda_device, dtype, b, h, nq, nk,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_bwd_kernels_are_deterministic(cuda_device, dtype):
-    """No atomics: every block owns its outputs, so two runs give the same bits."""
-    q, k, v, do, bias, o, lse = _bwd_inputs(cuda_device, dtype, 1, 8, 1000, 1000, 40, True, True)
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+def test_flash_bwd_kernels_are_deterministic(cuda_device, dtype, d):
+    """No atomics: every block owns its outputs, so two runs give the same
+    bits, at every tile shape."""
+    q, k, v, do, bias, o, lse = _bwd_inputs(cuda_device, dtype, 1, 8, 1000, 1000, d, True, True)
     first = tfa.flash_attention_bwd(q, k, v, bias, o, do, lse)
     second = tfa.flash_attention_bwd(q, k, v, bias, o, do, lse)
     for a, b_ in zip(first, second):
@@ -136,13 +152,19 @@ def test_flash_bwd_kernels_are_deterministic(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-def test_flash_all_neg_inf_row_gets_zero_gradients_on_the_card(cuda_device):
-    q, k, v, do, _, _, _ = _bwd_inputs(cuda_device, torch.bfloat16, 2, 2, 64, 128, 80, False, False)
-    bias = torch.zeros(2, 128, device=cuda_device)
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+def test_flash_all_neg_inf_row_gets_zero_gradients_on_the_card(cuda_device, d):
+    """A batch row whose every logit is -inf gets zero dQ, dK and dV; the
+    other row stays within the limit (Nq and Nk off the tiles)."""
+    q, k, v, do, _, _, _ = _bwd_inputs(cuda_device, torch.bfloat16, 2, 2, 70, 150, d, False, False)
+    bias = torch.zeros(2, 150, device=cuda_device)
     bias[1] = -float("inf")
     o, lse = tfa.flash_attention(q, k, v, bias, return_lse=True)
-    for x in tfa.flash_attention_bwd(q, k, v, bias, o, do, lse):
+    got = tfa.flash_attention_bwd(q, k, v, bias, o, do, lse)
+    ref = tfa.flash_attention_bwd_reference(q, k, v, bias, o, do, lse)
+    for x, r in zip(got, ref):
         assert torch.isfinite(x).all() and torch.all(x[1] == 0)
+        torch.testing.assert_close(x.float(), r.float(), atol=tfa.grad_parity_atol(r), rtol=0)
 
 
 @pytest.mark.cuda
