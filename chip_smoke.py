@@ -11,12 +11,17 @@ Phases, one line of output each (any failure exits non-zero):
   2. kernels: each kernel against its plain PyTorch version on the card at
      its paths' shapes (SD1.5's and SDXL's), as the head-split views the
      UNet passes (bf16 and f32), and at edge cases (padded Nk, Nq off the tile, NEG_INF bias
-     segments, fully masked rows, lse), within ``parity_atol`` (forward)
-     and ``grad_parity_atol`` (backward); at the path's shapes also the
+     segments, fully masked rows, lse), and at MasaCtrl's biased shapes
+     (``BIAS_SHAPES``: the union plan's two K/V segments, the mask
+     variants' fg/bg keys) with the bias the path builds, within
+     ``parity_atol`` (forward) and ``grad_parity_atol`` (backward); at the
+     path's shapes also the
      kernel's, plain version's and library call's times (the backward's
      also on the device: CUDA-graph replays, SDPA's under the profiler), the bound, and the
      readings of planted faults (emulated in plain PyTorch, at the tile of
-     the kernel they check) that the bf16 limit must reject; the forward
+     the kernel they check; at the biased shapes also the bias ignored)
+     that the bf16 limit must reject; SDPA with the same float mask as the
+     biased shapes' library time; the forward
      wrapper's host µs per call at a batch-1 SDXL site;
      probe: the tile-shape probe kernel against its plain version for
      every layout and head dim, every block's value, then its timed table
@@ -24,7 +29,8 @@ Phases, one line of output each (any failure exits non-zero):
   3. tiny: the tiny pipeline's invert + P2P edit, and its null-text
      inversion + edit, on the card against the same pipeline on the CPU (the
      kernels' plain versions); the same for the tiny SDXL pipeline, its NTI
-     with and without the checkpointed UNet;
+     with and without the checkpointed UNet; on both, MasaCtrl (mutual,
+     union, mask, auto mask, direction) and PnP;
   4. main path: SD1.5 at full width (random weights from a seed), 512²,
      bf16 — image2latent, 50-step DDIM inversion, 50-step P2P replace edit
      with LocalBlend at CFG batch 4, decode — with the launch counts of
@@ -35,16 +41,24 @@ Phases, one line of output each (any failure exits non-zero):
      per-step embeddings; launch counts of every kernel read around it;
   6. profile: one UNet forward at the edit's and the inversion's batch under
      torch.profiler: device busy time, idle share, launches, top kernels;
-  7. xl main path, xl nti path, xl profile: the same three on SDXL at full
-     width, 1024², bf16 (the NTI path with 2 inner iterations per step and
-     the checkpointed UNet), decode full-frame and tiled;
-  8. refiner: img2img through the SDXL refiner at 1024², strength 0.3;
+  7. masactrl path: the same model through ``cli.invert(..., "ddim",
+     "masactrl")`` and ``cli.run_method("masactrl", ...)`` (mutual), then
+     edits alone with the union plan, a fixed mask and the auto mask, and a
+     mutual edit with the NTI path's embeddings; pnp path:
+     ``cli.run_method("pnp", ...)`` on the same inversion; exact launch
+     counts of each run;
+  8. xl main path, xl nti path, xl profile, xl masactrl path, xl pnp path:
+     the same on SDXL at full width, 1024², bf16 (the NTI path with 2 inner
+     iterations per step and the checkpointed UNet), decode full-frame and
+     tiled;
+  9. refiner: img2img through the SDXL refiner at 1024², strength 0.3;
 then each phase's seconds, the kernels JSON line, the card line, and the
 result line last.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -66,6 +80,18 @@ PATH_SHAPES = {
 GRAD_SHAPES = {
     "sd": [(4096, 40, 8, 4), (1024, 80, 8, 5), (256, 160, 8, 5), (64, 160, 8, 1)],
     "xl": [(4096, 64, 10, 9), (1024, 64, 20, 60)],
+}
+# MasaCtrl's biased forward calls per CFG-4 UNet forward at its gated sites
+# (SD1.5 layers 10-15, SDXL 54-69): (variant, tokens, keys, head dim, heads,
+# calls). The union plan gives each gated site two K/V segments, the first
+# (the source's) masked by NEG_INF on the source rows and, at ungated steps,
+# on the target rows; the mask and auto variants make two calls per gated
+# site (fg and bg keys of the source).
+BIAS_SHAPES = {
+    "sd": [("union", 1024, 2048, 80, 8, 3), ("union", 4096, 8192, 40, 8, 3),
+           ("mask", 1024, 1024, 80, 8, 6), ("mask", 4096, 4096, 40, 8, 6)],
+    "xl": [("union", 1024, 2048, 64, 20, 10), ("union", 4096, 8192, 64, 10, 6),
+           ("mask", 1024, 1024, 64, 20, 20), ("mask", 4096, 4096, 64, 10, 12)],
 }
 SITES = {model: sum(shape[3] for shape in shapes) for model, shapes in PATH_SHAPES.items()}
 GRAD_SITES = {model: sum(shape[3] for shape in shapes) for model, shapes in GRAD_SHAPES.items()}
@@ -258,18 +284,21 @@ def phase_device():
     return found
 
 
-def fault_readings(q, k, v, ref):
+def fault_readings(q, k, v, ref, bias=None):
     """max|O - ref| of three broken kernels, emulated in plain PyTorch on
-    the same bf16 inputs, with the forward's key tile at this head dim: the
-    last key tile skipped, the accumulator not rescaled when the running max
-    grows, P left unrounded before P·V."""
+    the same bf16 inputs and bias, with the forward's key tile at this head
+    dim: the last key tile skipped, the accumulator not rescaled when the
+    running max grows, P left unrounded before P·V; with a bias, a fourth
+    that ignores it."""
     from image_editing_framework_torch.ops import flash_attention as fa
 
     nk, tile_keys = k.shape[2], fwd_key_tile(q.shape[-1])
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
-    bias = torch.zeros(q.shape[0], nk, device=q.device)
-    bias[:, (nk - 1) // tile_keys * tile_keys:] = float("-inf")
-    skipped = fa.flash_attention_reference(q, k, v, bias)
+    if bias is not None:
+        s += bias[:, None, None, :]
+    skip = torch.zeros(q.shape[0], nk, device=q.device) if bias is None else bias.clone()
+    skip[:, (nk - 1) // tile_keys * tile_keys:] = float("-inf")
+    outs = {"skipped_key_tile": fa.flash_attention_reference(q, k, v, skip)}
     m = torch.full_like(s[..., :1], float("-inf"))
     l = acc = 0.0
     for j in range(0, nk, tile_keys):
@@ -279,19 +308,46 @@ def fault_readings(q, k, v, ref):
         l = l * torch.exp(m - m_new) + p.sum(-1, keepdim=True)
         acc = acc + torch.matmul(p.to(v.dtype).float(), v[:, :, j:j + tile_keys].float())  # no acc·alpha
         m = m_new
+    outs["no_acc_rescale"] = acc / l
+    del acc, l, m, tile, p
     p = torch.exp(s - s.amax(-1, keepdim=True))
-    unrounded = torch.matmul(p, v.float()) / p.sum(-1, keepdim=True)
-    del s, p
-    return {name: (out.to(q.dtype).float() - ref.float()).abs().max().item()
-            for name, out in (("skipped_key_tile", skipped), ("no_acc_rescale", acc / l),
-                              ("p_unrounded", unrounded))}
+    del s
+    outs["p_unrounded"] = torch.matmul(p, v.float()) / p.sum(-1, keepdim=True)
+    del p
+    if bias is not None:
+        outs["bias_ignored"] = fa.flash_attention_reference(q, k, v)
+    return {name: (out.to(q.dtype).float() - ref.float()).abs().max().item() for name, out in outs.items()}
+
+
+def bias_operands(variant, b, h, n, d, gen, device="cuda"):
+    """(q, k, v, bias) as MasaCtrl's gated sites hand them to the kernel,
+    bf16, from head-split views of (B, N, H·D) projections: ``union``, the
+    union plan's gathers and segment bias (``plan_operands``) at an ungated
+    step, where the targets' first segment (the source's keys) is masked;
+    at a gated step only the sources' first segment is, and it repeats
+    their own keys, so there the bias leaves the result as it is. ``mask``,
+    the queries against the gathered source K/V with the fg bias of a
+    random (asymmetric) mask (``key_bias``). Both mask whole key tiles
+    before the open ones."""
+    from image_editing_framework_torch.ops import controls as ctl
+    from image_editing_framework_torch.ops.attention import AttnSite, plan_operands, split_heads
+
+    q, k, v = (split_heads(torch.randn(b, n, h * d, device=device, dtype=torch.bfloat16, generator=gen), h)
+               for _ in range(3))
+    if variant == "union":
+        step = ctl.MasaCtrlStep(step_gate=torch.tensor(False, device=device), layers=(0,), union=True)
+        return plan_operands(q, k, v, step.self_plan(AttnSite(0, "up", n, False), b))
+    half_src = (torch.arange(b, device=device) // 2) * 2
+    fg = torch.rand(n, device=device, generator=gen) > 0.5
+    return q, k[half_src], v[half_src], ctl.key_bias(fg, b)
 
 
 def phase_kernels(gen):
     """Kernel vs plain version; times at the paths' shapes. Returns the
     worst errors, per model the sums over the sites of one CFG-batch UNet
-    forward (16 for SD1.5, 70 for SDXL), and the wrapper's host µs per call
-    at a batch-1 SDXL site."""
+    forward (16 for SD1.5, 70 for SDXL), the same for MasaCtrl's biased
+    calls per variant (BIAS_SHAPES) with the whole forward's flash ms under
+    each, and the wrapper's host µs per call at a batch-1 SDXL site."""
     from image_editing_framework_torch.ops import flash_attention as fa
     from image_editing_framework_torch.ops.attention import split_heads
     from image_editing_framework_torch.tools.bench_flash_fwd import enqueue_us
@@ -300,6 +356,9 @@ def phase_kernels(gen):
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     sums = {model: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0, "bytes": 0.0}
             for model in PATH_SHAPES}
+    bias_sums = {model: {variant: dict.fromkeys(sums[model], 0.0) for variant in ("union", "mask")}
+                 for model in BIAS_SHAPES}
+    site_ms = {}  # (model, tokens) -> ms of one unbiased bf16 call at CFG batch 4
 
     def check(dtype, b, h, nq, nk, d, bias=None, lse=False, timed=False, sites=0, model=None):
         """Path shapes (``model`` given) come as the UNet gives them:
@@ -344,8 +403,43 @@ def phase_kernels(gen):
                 bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
             )
             if dtype == torch.bfloat16 and b == 4:
+                site_ms[model, nq] = row["ms"]
                 for key in sums[model]:
                     sums[model][key] += sites * row[key]
+        emit("kernel", name="flash_fwd", **row)
+
+    def check_biased(model, variant, n, nk, d, h, calls):
+        """A MasaCtrl shape: the biased kernel against its plain version,
+        the planted faults (bias ignored among them), and the kernel's,
+        plain version's and SDPA's (same float mask) times. The bound counts
+        the keys the bias leaves open, the work this call's data needs."""
+        q, k, v, bias = bias_operands(variant, 4, h, n, d, gen)
+        assert k.shape[2] == nk and bias.is_contiguous() and bias.dtype == torch.float32
+        out = fa.flash_attention(q, k, v, bias)
+        ref = fa.flash_attention_reference(q, k, v, bias)
+        torch.cuda.synchronize()
+        err, tol = (out.float() - ref.float()).abs().max().item(), fa.parity_atol(ref)
+        if not math.isfinite(err) or err > tol:
+            raise AssertionError(f"biased flash kernel ({variant}) disagrees with its plain version: {err} > {tol}")
+        worst[torch.bfloat16] = max(worst[torch.bfloat16], err)
+        faults = fault_readings(q, k, v, ref, bias)
+        must_fail = ["skipped_key_tile", "no_acc_rescale"] + (["bias_ignored"] if variant == "union" else [])
+        passed = [name for name in must_fail if not faults[name] > tol]
+        if passed:
+            raise AssertionError(f"the bf16 limit {tol} does not reject the planted faults {passed}: {faults}")
+        open_keys = (bias > fa.NEG_INF / 2).sum().item()  # summed over the batch
+        flops = 4.0 * h * n * d * open_keys
+        nbytes = 2 * (2 * 4 * h * n * d + 2 * h * d * open_keys) + 4 * bias.numel()
+        bound, by = bound_ms(flops, nbytes, torch.bfloat16)
+        mask = bias.to(q.dtype)[:, None, None, :]
+        row = dict(model=model, variant=variant, dtype="bfloat16", shape=[4, h, n, nk, d], strides=list(q.stride()),
+                   bias=True, open_key_share=open_keys / bias.numel(), max_abs_err=err, tol=tol, faults=faults,
+                   ms=cuda_ms(lambda: fa.flash_attention(q, k, v, bias)),
+                   plain_ms=cuda_ms(lambda: fa.flash_attention_reference(q, k, v, bias)),
+                   library_ms=cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask)),
+                   bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes, calls_per_forward=calls)
+        for key in bias_sums[model][variant]:
+            bias_sums[model][variant][key] += calls * row[key]
         emit("kernel", name="flash_fwd", **row)
 
     for dtype in (torch.bfloat16, torch.float32):
@@ -365,14 +459,23 @@ def phase_kernels(gen):
         bias = torch.zeros(2, 512, device="cuda")
         bias[0] = float("-inf")  # every logit -inf: the row returns 0
         check(dtype, 2, HEADS, 64, 512, 160, bias=bias, lse=True)
-    for part in sums.values():
+    for model, shapes in BIAS_SHAPES.items():
+        for shape in shapes:
+            check_biased(model, *shape)
+    for part in list(sums.values()) + [p for per in bias_sums.values() for p in per.values()]:
         part["bound_ms"], part["bound_by"] = bound_ms(part["flops"], part["bytes"], torch.bfloat16)
+    for model, shapes in BIAS_SHAPES.items():
+        # the whole forward's flash ms: union replaces the gated sites' calls,
+        # mask adds two to each
+        gated = sum(site_ms[model, n] * calls for variant, n, _, _, _, calls in shapes if variant == "union")
+        bias_sums[model]["union"]["forward_ms"] = sums[model]["ms"] - gated + bias_sums[model]["union"]["ms"]
+        bias_sums[model]["mask"]["forward_ms"] = sums[model]["ms"] + bias_sums[model]["mask"]["ms"]
     # host time per call (checks, tensor maps, launch) at a batch-1 SDXL site
     q, k, v = (split_heads(torch.randn(1, 1024, 20 * 64, device="cuda", dtype=torch.bfloat16, generator=gen), 20)
                for _ in range(3))
     enqueue = enqueue_us(lambda: fa.flash_attention(q, k, v))
     emit("enqueue", kernel="flash_fwd", shape=[1, 20, 1024, 1024, 64], us_per_call=enqueue)
-    return worst, sums, enqueue
+    return worst, sums, bias_sums, enqueue
 
 
 def bwd_fault_readings(q, k, v, do, o, lse, ref):
@@ -548,12 +651,98 @@ def phase_probe():
             "bound_ms": sum(r["bound_us_per_iter"] for r in rows) / 1e3}
 
 
+def tiny_edits(pipe, model_type):
+    """The tiny pipeline's MasaCtrl edits (mutual, union, a fixed asymmetric
+    mask, the auto mask, mutual with ``direction_scale``) and its PnP edit
+    from one seeded start latent: {name: final latents on the CPU}, and the
+    auto masks' smallest distance from their threshold."""
+    from image_editing_framework_torch.core.config import MasaCtrlConfig, SamplerConfig
+    from image_editing_framework_torch.methods.masactrl import masactrl_edit
+    from image_editing_framework_torch.methods.pnp import pnp_edit
+    from image_editing_framework_torch.ops import controls as ctl
+
+    prompts = ["a cat sitting on the grass", "a dog sitting on the grass"]
+    sampler = SamplerConfig(height=32, width=32)
+    rng = np.random.RandomState(3)
+    latent = torch.from_numpy(rng.randn(1, 16, 16, 4).astype(np.float32)).to(pipe.device)
+    mask_s, mask_t = ((rng.rand(32, 32) > 0.5).astype(np.float32) for _ in range(2))
+    cfg = MasaCtrlConfig(start_step=1, start_layer=2 if model_type == "sd" else 4)
+    finals, gaps = {}, []
+    decode, masks_from = pipe.latent2image, ctl.MasaCtrlAutoStep.masks_from
+
+    def recording_masks(step, running):
+        out = masks_from(step, running)
+        gaps.append(min((m - step.thres).abs().min().item() for m in out))
+        return out
+
+    def recording_decode(lat, **kw):
+        finals[name] = lat.cpu()
+        return decode(lat, **kw)
+
+    pipe.latent2image = recording_decode
+    ctl.MasaCtrlAutoStep.masks_from = recording_masks
+    try:
+        for name, kw in (("mutual", {}), ("union", dict(cfg=dataclasses.replace(cfg, mode="union"))),
+                         ("mask", dict(mask_s=mask_s, mask_t=mask_t)),
+                         ("auto", dict(auto_mask=True, cur_token_idx=(1, 5))), ("direction", dict(direction_scale=2.0))):
+            masactrl_edit(pipe, prompts, latent, kw.pop("cfg", cfg), sampler, **kw)
+        name = "pnp"
+        pnp_edit(pipe, prompts, latent, sampler=sampler)
+    finally:
+        del pipe.latent2image
+        ctl.MasaCtrlAutoStep.masks_from = masks_from
+    return finals, min(gaps, default=None)
+
+
+def controls_sync_free():
+    """Every MasaCtrl variant's and PnP's step at a gated site on the card,
+    at a gated and an ungated step, under ``torch.cuda.set_sync_debug_mode
+    ("error")``: no gate, index, mask or bias makes the host wait for the
+    card (a synchronising call raises)."""
+    from image_editing_framework_torch.core.config import MasaCtrlConfig, PnPConfig
+    from image_editing_framework_torch.ops import controls as ctl
+    from image_editing_framework_torch.ops.attention import AttnSite, self_attention
+
+    n, h, d = 256, 8, 40
+    q, k, v = (torch.randn(4, h, n, d, device="cuda", dtype=torch.bfloat16) for _ in range(3))
+    site, cross = AttnSite(12, "up", n, False), AttnSite(4, "down", 256, True)
+    mask = (torch.rand(64, 64, device="cuda") > 0.5).float()
+    probs = torch.rand(4, h, 256, 77, device="cuda").softmax(-1)
+    feat = torch.randn(4, 64, 32, 32, device="cuda", dtype=torch.bfloat16)
+    controls = {
+        "mutual": ctl.build_masactrl_control(STEPS, 16, MasaCtrlConfig(), device="cuda"),
+        "union": ctl.build_masactrl_control(STEPS, 16, MasaCtrlConfig(mode="union"), device="cuda"),
+        "mask": ctl.build_masactrl_control(STEPS, 16, MasaCtrlConfig(), mask_s=mask, mask_t=mask.flip(0),
+                                           device="cuda"),
+        "auto": ctl.build_masactrl_control(STEPS, 16, MasaCtrlConfig(), auto_mask=True, device="cuda"),
+    }
+    pnp = ctl.build_pnp_control(STEPS, PnPConfig(), (12,), ("up1_res1",), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in (0, 10):
+            for name, control in controls.items():
+                step = control.at_step(i)
+                running = {cross.key: step.record(cross, probs)} if name == "auto" else None
+                if step.self_override(site, q, k, v, running) is None:
+                    self_attention(q, k, v, step.self_plan(site, 4))
+            step = pnp.at_step(i)
+            self_attention(q, k, v, step.self_plan(site, 4))
+            step.resnet_hook("up1_res1", feat)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return True
+
+
 def phase_tiny():
     """Tiny pipelines on the card (f32 kernels, head dims 16 and 32) against
     the same weights on the CPU (plain versions). SD: invert + P2P edit with
     LocalBlend, and null-text inversion (4 steps, 2 inner iterations) + the
     edit with its embeddings. SDXL: invert + P2P edit, and XL null-text
-    inversion with and without the checkpointed UNet."""
+    inversion with and without the checkpointed UNet. Both: MasaCtrl
+    (mutual, union, mask, auto mask, direction) and PnP (``tiny_edits``);
+    their steps never synchronise (``controls_sync_free``)."""
     from image_editing_framework_torch.core.config import NTIConfig, P2PConfig, SamplerConfig
     from image_editing_framework_torch.inversion.ddim import ddim_invert
     from image_editing_framework_torch.inversion.nti import null_text_inversion
@@ -594,12 +783,24 @@ def phase_tiny():
         if not all(e < 1e-3 for e in errs):
             raise AssertionError(f"tiny {model_type} pipeline on the card disagrees with the CPU: edit, NTI edit, "
                                  f"NTI embeddings (plain, checkpointed) {errs}")
-        fields = dict(max_abs_err=errs[0], nti_edit_max_abs_err=errs[1], nti_embedding_max_abs_err=errs[2], tol=1e-3)
+        # MasaCtrl and PnP; the auto masks threshold the maps, which must
+        # keep clear of it (the tiny SD net has 256-token sites; XL none)
+        (cpu_edits, gap), (gpu_edits, _) = (tiny_edits(pipe, model_type) for pipe in (cpu, gpu))
+        edit_errs = {k: (cpu_edits[k] - gpu_edits[k]).abs().max().item() for k in cpu_edits}
+        target_errs = {k: (cpu_edits[k][1] - gpu_edits[k][1]).abs().max().item() for k in cpu_edits}
+        margin_ok = gap > 1e-4 if model_type == "sd" else gap is None
+        if len(edit_errs) != 6 or not all(e < 1e-3 for e in edit_errs.values()) or not margin_ok:
+            raise AssertionError(f"tiny {model_type} MasaCtrl/PnP on the card disagree with the CPU: {edit_errs}, "
+                                 f"auto-mask margin {gap}")
+        fields = dict(max_abs_err=errs[0], nti_edit_max_abs_err=errs[1], nti_embedding_max_abs_err=errs[2], tol=1e-3,
+                      masactrl_pnp_max_abs_err=edit_errs, masactrl_pnp_target_max_abs_err=target_errs,
+                      auto_mask_margin=gap)
         if model_type == "xl":
             fields.update(nti_embedding_remat_max_abs_err=errs[3],
                           remat_bitwise_on_card=bool(torch.equal(results[1][2], results[1][3])))
         emit("tiny" if model_type == "sd" else "xl_tiny", **fields)
     torch.backends.cudnn.allow_tf32 = True
+    emit("controls_sync_free", masactrl_and_pnp_steps=controls_sync_free())
 
 
 def timed(fn):
@@ -772,7 +973,7 @@ def phase_nti_path(model, pipe):
          image_s=invert_s + edit_s, nti_share=marks["nti_s"] / (invert_s + edit_s), inner_iterations=j,
          nti_launches=nti_counts, launches=counts, uncond_moved=float((uncond_seq[-1] - uncond_seq[0]).abs().max()),
          peak_gib=torch.cuda.max_memory_allocated() / 2**30, image_mean=float(images.mean()), card=card_line())
-    return counts
+    return counts, (last, uncond_seq)
 
 
 def phase_profile(model, pipe, lat4, ctx, added):
@@ -798,6 +999,102 @@ def phase_profile(model, pipe, lat4, ctx, added):
              idle_share=1.0 - busy_ms / wall_ms, launches_per_forward=sum(e.count for e in kernels) / PROFILE_REPS,
              flash_ms=flash_ms, flash_share_of_busy=flash_ms / busy_ms,
              top=[[e.key[:60], e.self_device_time_total / PROFILE_REPS / 1e3] for e in top])
+
+
+# forward calls per gated site of the auto-mask variant: normal, mutual and,
+# once a 256-token cross-attention map is recorded earlier in the forward
+# (SD1.5 has such sites before its gated layers, SDXL at 1024² none), fg and bg
+AUTO_CALLS = {"sd": 4, "xl": 2}
+
+
+def phase_masactrl_path(model, pipe, nti):
+    """MasaCtrl through the user entry points, bf16, 50 steps, 2 prompts:
+    ``cli.invert(..., "ddim", "masactrl")`` and ``cli.run_method("masactrl",
+    ...)`` with the default (mutual) configuration; on the same inversion,
+    edits alone with the union plan, a fixed asymmetric fg mask and the auto
+    mask; then a mutual edit with ``phase_nti_path``'s inversion and
+    null-text embeddings. Exact forward launches per run, none backward."""
+    from image_editing_framework_torch import cli
+    from image_editing_framework_torch.core.config import SamplerConfig
+    from image_editing_framework_torch.methods.masactrl import default_masactrl_config
+
+    _, name, side, _ = MODELS[model]
+    image = (np.random.RandomState(3).rand(side, side, 3) * 255).astype(np.uint8)
+    sampler = SamplerConfig(num_inference_steps=STEPS, height=side, width=side)
+    cfg = default_masactrl_config(pipe)
+    sites = SITES[model]
+    gated = sites - cfg.start_layer
+    lat = side // 8
+    mask_s, mask_t = np.zeros((lat, lat), np.float32), np.zeros((lat, lat), np.float32)
+    mask_s[lat // 8:5 * lat // 8, lat // 16:lat // 2] = 1.0  # the object, off-centre
+    mask_t[lat // 4:3 * lat // 4, 3 * lat // 8:7 * lat // 8] = 1.0  # ... where the target puts it
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    (last, traj, _), invert_s = timed(lambda: cli.invert(pipe, image, PROMPTS[0], "ddim", "masactrl"))
+    inv_counts = launch_counts()
+    runs = {}
+    for label, start, kw, per_step in (
+            ("mutual", last, {}, sites),
+            ("union", last, dict(method_kwargs={"config": dataclasses.replace(cfg, mode="union")}), sites),
+            ("mask", last, dict(method_kwargs={"mask_s": mask_s, "mask_t": mask_t}), sites + 2 * gated),
+            ("auto", last, dict(method_kwargs={"auto_mask": True}), sites + (AUTO_CALLS[model] - 1) * gated),
+            ("nti_mutual", nti[0], dict(uncond_seq=nti[1]), sites)):
+        reset_launch_counts()
+        images, edit_s = timed(lambda: cli.run_method("masactrl", pipe, PROMPTS, start, sampler, **kw))
+        counts = launch_counts()
+        if counts != (per_step * STEPS, 0, 0):
+            raise AssertionError(f"MasaCtrl {label} on {model} launched (forward, dQ, dK/dV) {counts} times, "
+                                 f"expected ({per_step * STEPS}, 0, 0)")
+        if any(x.shape != (side, side, 3) or x.dtype != np.uint8 or x.std() == 0 for x in images):
+            raise AssertionError(f"MasaCtrl {label} output constant or misshapen")
+        runs[label] = dict(edit_and_decode_s=edit_s, flash_launches=counts[0], images=images)
+    if inv_counts != (sites * STEPS, 0, 0) or not torch.isfinite(traj.float()).all():
+        raise AssertionError(f"the MasaCtrl inversion launched {inv_counts} times or is not finite")
+    # the masks change the target against mutual attention (the auto mask
+    # only where it finds maps); union's may not show in uint8: both branches
+    # start from one latent, so the target's own keys are close to the source's
+    differs = {label: bool(not np.array_equal(runs[label]["images"][1], runs["mutual"]["images"][1]))
+               for label in ("union", "mask", "auto")}
+    if not (differs["mask"] and differs["auto"] == (AUTO_CALLS[model] == 4)):
+        raise AssertionError(f"a masked MasaCtrl variant's target equals the mutual edit's: {differs}")
+    emit("masactrl_path" if model == "sd" else "xl_masactrl_path", model=f"{name} (random weights, seed 0)",
+         resolution=side, dtype="bfloat16", steps=STEPS, start_step=cfg.start_step, start_layer=cfg.start_layer,
+         invert_s=invert_s, inversion_launches=inv_counts[0],
+         runs={label: {k: v for k, v in run.items() if k != "images"} | {"image_mean": float(run["images"][1].mean())}
+               | ({} if label == "nti_mutual" else {  # that one's inversion is the NTI path's
+                   "image_s": invert_s + run["edit_and_decode_s"],
+                   "image_launches": inv_counts[0] + run["flash_launches"]}) for label, run in runs.items()},
+         differs_from_mutual=differs, bwd_launches=0, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+         card=card_line())
+    by_run = {label: run["flash_launches"] for label, run in runs.items()}
+    return inv_counts[0] + sum(by_run.values()), dict(inversion=inv_counts[0], **by_run), (last, invert_s, inv_counts[0])
+
+
+def phase_pnp_path(model, pipe, inversion):
+    """Plug-and-Play through ``cli.run_method("pnp", ...)`` on
+    ``phase_masactrl_path``'s DDIM inversion, bf16, 50 steps: exact forward
+    launches, none backward."""
+    from image_editing_framework_torch import cli
+    from image_editing_framework_torch.core.config import SamplerConfig
+
+    _, name, side, _ = MODELS[model]
+    last, invert_s, inv_launches = inversion
+    sampler = SamplerConfig(num_inference_steps=STEPS, height=side, width=side)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    images, edit_s = timed(lambda: cli.run_method("pnp", pipe, PROMPTS, last, sampler))
+    counts = launch_counts()
+    expected = (SITES[model] * STEPS, 0, 0)
+    if counts != expected:
+        raise AssertionError(f"PnP on {model} launched (forward, dQ, dK/dV) {counts} times, expected {expected}")
+    if any(x.shape != (side, side, 3) or x.dtype != np.uint8 or x.std() == 0 for x in images):
+        raise AssertionError("PnP output constant or misshapen")
+    emit("pnp_path" if model == "sd" else "xl_pnp_path", model=f"{name} (random weights, seed 0)", resolution=side,
+         dtype="bfloat16", steps=STEPS, edit_and_decode_s=edit_s, image_s=invert_s + edit_s,
+         flash_launches=counts[0], image_launches=inv_launches + counts[0], bwd_launches=0,
+         peak_gib=torch.cuda.max_memory_allocated() / 2**30, image_mean=float(images[1].mean()), card=card_line())
+    return counts[0]
 
 
 def phase_refiner():
@@ -846,16 +1143,20 @@ def main() -> int:
         return out
 
     instances = run("device", phase_device)
-    worst, sums, enqueue = run("kernels", phase_kernels, gen)
+    worst, sums, bias_sums, enqueue = run("kernels", phase_kernels, gen)
     bwd_worst, bwd_sums = run("bwd_kernels", phase_bwd_kernels, gen)
     probe = run("probe", phase_probe)
     run("tiny", phase_tiny)
-    launches, unet_ms, bwd_launches = {}, {}, {}
+    launches, unet_ms, bwd_launches, masa_runs = {}, {}, {}, {}
     for model, prefix in (("sd", ""), ("xl", "xl_")):
         launches[model], unet_ms[model], profile_args = run(prefix + "main_path", phase_main_path, model)
-        bwd_launches[model] = run(prefix + "nti_path", phase_nti_path, model, profile_args[0])[1:]
+        nti_counts, nti = run(prefix + "nti_path", phase_nti_path, model, profile_args[0])
+        bwd_launches[model] = nti_counts[1:]
         run(prefix + "profile", phase_profile, model, *profile_args)
-        del profile_args  # the next model needs the card's memory
+        launches[prefix + "masactrl"], masa_runs[model], inversion = run(
+            prefix + "masactrl_path", phase_masactrl_path, model, profile_args[0], nti)
+        launches[prefix + "pnp"] = run(prefix + "pnp_path", phase_pnp_path, model, profile_args[0], inversion)
+        del profile_args, nti, inversion  # the next model needs the card's memory
         torch.cuda.empty_cache()
     launches["refiner"] = run("refiner", phase_refiner)
     emit("seconds", **seconds)
@@ -866,7 +1167,9 @@ def main() -> int:
              sdpa_ms_per_cfg4_forward=fwd["library_ms"], bwd_ms_per_inner_iteration=bwd["ms"],
              bwd_bound_ms_per_inner_iteration=bwd["bound_ms"], bwd_bound_by=bwd["bound_by"],
              sdpa_bwd_ms_per_inner_iteration=bwd["library_ms"], bwd_device_ms_per_inner_iteration=bwd["device_ms"],
-             sdpa_bwd_device_ms_per_inner_iteration=bwd["library_device_ms"])
+             sdpa_bwd_device_ms_per_inner_iteration=bwd["library_device_ms"],
+             masactrl_union_flash_ms_per_cfg4_forward=bias_sums[model]["union"]["forward_ms"],
+             masactrl_mask_flash_ms_per_cfg4_forward=bias_sums[model]["mask"]["forward_ms"])
 
     def at(part, *more):
         return {key: part[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms") + more}
@@ -881,7 +1184,8 @@ def main() -> int:
         "name": f"flash_bwd_{kernel}", "route": "cuda", "source": "image_editing_framework_torch/csrc/flash_bwd.cu",
         "replaces": f"{tpu}:{line}", "also_replaces": f"{tpu}:{line_t}",
         "launches": sum(counts[i] for counts in bwd_launches.values()),
-        "launches_by_path": {"nti_path": bwd_launches["sd"][i], "xl_nti_path": bwd_launches["xl"][i]},
+        "launches_by_path": {"nti_path": bwd_launches["sd"][i], "xl_nti_path": bwd_launches["xl"][i],
+                             "masactrl_path": 0, "xl_masactrl_path": 0, "pnp_path": 0, "xl_pnp_path": 0},
         "max_abs_err": bwd_worst[torch.bfloat16][kernel], "max_abs_err_f32": bwd_worst[torch.float32][kernel],
         **at(bwd_sums["sd"][kernel], *device), "work": work["sd"],
         "at_xl": dict(at(bwd_sums["xl"][kernel], *device), work=work["xl"]),
@@ -909,7 +1213,10 @@ def main() -> int:
         "replaces": f"{tpu}:76", "also_replaces": f"{tpu}:205",
         "launches": sum(launches.values()),
         "launches_by_path": {"main_path": launches["sd"], "xl_main_path": launches["xl"],
+                             "masactrl_path": launches["masactrl"], "xl_masactrl_path": launches["xl_masactrl"],
+                             "pnp_path": launches["pnp"], "xl_pnp_path": launches["xl_pnp"],
                              "refiner": launches["refiner"]},
+        "masactrl_launches_by_run": masa_runs,
         "max_abs_err": worst[torch.bfloat16], "max_abs_err_f32": worst[torch.float32],
         **at(sums["sd"]), "work": "the 16 self-attention sites of one SD1.5 512² UNet forward at CFG batch 4, bf16",
         "at_xl": dict(at(sums["xl"]), work="the 70 sites of one SDXL 1024² UNet forward at CFG batch 4, bf16"),
@@ -917,6 +1224,10 @@ def main() -> int:
                   "over rank-4 (D, N, H, B) tensor maps into a 2-stage ring on mbarriers, one producer warp, two "
                   "consumer warpgroups of 64 queries (128 per block; one, 64 queries, at d = 160), setmaxnreg "
                   "24/240; 128-key tiles, 64 at d = 160; f32: CUDA cores",
+        "at_bias": {model: {variant: dict(at(part), forward_ms=part["forward_ms"], work=(
+            f"MasaCtrl's {variant} calls at the {'6 SD1.5' if model == 'sd' else '16 SDXL'} gated sites of one CFG-4 "
+            f"UNet forward (BIAS_SHAPES), bf16, with their bias; forward_ms: all the forward's flash calls")) for
+            variant, part in per.items()} for model, per in bias_sums.items()},
         "enqueue_us_b1_1024_d64": enqueue,
         "bf16_instances": [{key: r.get(key) for key in ("dp", "bias", "lse", "registers", "smem_bytes",
                                                          "spill_stores", "spill_loads")}

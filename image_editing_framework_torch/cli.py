@@ -1,22 +1,28 @@
-"""The shared logic of the editing entry points (inversion so far).
+"""The shared logic of the editing entry points.
 
 Counterpart of ``image_editing_framework_tpu/cli.py``: ``invert`` is the
 normal entry that picks the inversion (DDIM, null-text or direct) for a real
-image, with the reference's learning-rate schedules (``nti_config_for``).
-The argument parsing and the per-method ``*_main`` entry points arrive with the
-CLI slice.
+image, with the reference's learning-rate schedules (``nti_config_for``);
+``run_method`` dispatches one edit to P2P, MasaCtrl or PnP, with the
+MasaCtrl command-line options merged by ``_masactrl_cli_kwargs``. The
+argument parsing and the per-method ``*_main`` entry points arrive with the
+CLI slice, pix2pix-zero with its own.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from image_editing_framework_torch.core.config import NTIConfig
+from image_editing_framework_torch.core.config import NTIConfig, P2PConfig, PnPConfig, SamplerConfig
 from image_editing_framework_torch.inversion.ddim import ddim_invert
 from image_editing_framework_torch.inversion.nti import null_text_inversion
+from image_editing_framework_torch.methods.masactrl import default_masactrl_config, masactrl_edit
+from image_editing_framework_torch.methods.p2p import p2p_edit
+from image_editing_framework_torch.methods.pnp import pnp_edit
 
 GUIDANCE_SCALE = 7.5
 INVERSION_TYPES = ("ddim", "null-text", "direct")
@@ -49,3 +55,60 @@ def invert(
         uncond_seq = null_text_inversion(pipe, traj, context, nti_config_for(method, pipe),
                                          guidance_scale=GUIDANCE_SCALE, added_cond=added_cond)
     return last, traj, uncond_seq
+
+
+def _int_list(spec: Optional[str]):
+    """``"1,2,3"`` -> (1, 2, 3); None or ``""`` -> None."""
+    if spec is None or spec == "":
+        return None
+    return tuple(int(x) for x in spec.split(",") if x.strip() != "")
+
+
+def _masactrl_cli_kwargs(args, pipe, method_kwargs: Optional[dict]) -> dict:
+    """Merge the MasaCtrl-only command-line options (``neg_prompt``,
+    ``step_idx``, ``layer_idx``) of ``args`` into ``method_kwargs``."""
+    kw = dict(method_kwargs or {})
+    if getattr(args, "neg_prompt", ""):
+        kw.setdefault("neg_prompt", args.neg_prompt)
+    step_idx = _int_list(getattr(args, "step_idx", None))
+    layer_idx = _int_list(getattr(args, "layer_idx", None))
+    if step_idx is not None or layer_idx is not None:
+        base = kw.get("config") or default_masactrl_config(pipe)
+        kw["config"] = dataclasses.replace(base, step_idx=step_idx, layer_idx=layer_idx)
+    return kw
+
+
+def run_method(
+    method: str,
+    pipe,
+    prompts,
+    latent: torch.Tensor,
+    sampler: SamplerConfig,
+    uncond_seq: Optional[torch.Tensor] = None,
+    method_kwargs: Optional[dict] = None,
+    source_replay: Optional[torch.Tensor] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Dispatch one edit; returns (inversion image, edit image), uint8.
+
+    ``source_replay`` (the inversion trajectory) enables direct inversion:
+    the source branch replays its recorded latents each step, pinning the
+    reconstruction to the input while the target branch edits freely.
+    ``method_kwargs`` go to the editor (``config`` its configuration).
+    """
+    kw = dict(method_kwargs or {})
+    if source_replay is not None and method != "p2z":
+        kw.setdefault("source_replay", source_replay)
+    if method == "p2p":
+        cfg = kw.pop("config", P2PConfig())
+        imgs = p2p_edit(pipe, prompts, latent, cfg, sampler, uncond_seq=uncond_seq, **kw)
+    elif method == "masactrl":
+        cfg = kw.pop("config", None) or default_masactrl_config(pipe)
+        imgs = masactrl_edit(pipe, prompts, latent, cfg, sampler, uncond_seq=uncond_seq, **kw)
+    elif method == "pnp":
+        cfg = kw.pop("config", PnPConfig())
+        imgs = pnp_edit(pipe, prompts, latent, cfg, sampler, uncond_seq=uncond_seq, **kw)
+    elif method == "p2z":
+        raise NotImplementedError("pix2pix-zero is not ported yet (ROADMAP A3)")
+    else:
+        raise ValueError(f"unknown method {method}")
+    return imgs[0], imgs[1]

@@ -1,9 +1,10 @@
-"""Method configuration dataclasses (the P2P and null-text slices).
+"""Method configuration dataclasses.
 
 Counterpart of ``image_editing_framework_tpu/core/config.py``: the sampler,
-Prompt-to-Prompt and null-text inversion configurations, with the
-reference's defaults (p2p/edit_real.py:42-55). The other methods'
-configurations arrive with their slices.
+Prompt-to-Prompt, MasaCtrl, Plug-and-Play and null-text inversion
+configurations, with the reference's defaults (p2p/edit_real.py:42-55,
+masactrl/edit_real.py:48-49, pnp/edit_real.py:45-46). pix2pix-zero's
+arrives with its slice.
 """
 
 from __future__ import annotations
@@ -46,6 +47,32 @@ class P2PConfig:
     # Optional local blend words (LocalBlend mask).
     blend_words: Optional[Tuple[Tuple[str, ...], Tuple[str, ...]]] = None
     blend_threshold: float = 0.3
+
+
+@dataclasses.dataclass(frozen=True)
+class MasaCtrlConfig:
+    """MasaCtrl (reference: masactrl/edit_real.py:48-49; STEP=4, LAYPER=10 for
+    SD, 54 for SDXL per masactrl/edit_real.py:118).
+
+    ``step_idx``/``layer_idx`` are explicit gating lists (the reference's
+    MutualSelfAttentionControl(step_idx=..., layer_idx=...) option,
+    masactrl/model/attention_control.py:16-29); when set they override the
+    start_step/start_layer ranges."""
+
+    start_step: int = 4
+    start_layer: int = 10  # 54 for SDXL
+    mode: str = "mutual"  # "mutual" | "union"
+    step_idx: Optional[Tuple[int, ...]] = None
+    layer_idx: Optional[Tuple[int, ...]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class PnPConfig:
+    """Plug-and-Play (reference: pnp/edit_real.py:45-46; edit_syn uses
+    1.0/1.0, pnp/edit_syn.py:39-40)."""
+
+    pnp_attn_t: float = 0.5
+    pnp_f_t: float = 0.8
 
 
 @dataclasses.dataclass(frozen=True)

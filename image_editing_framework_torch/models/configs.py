@@ -1,10 +1,12 @@
 """Model-family presets (SD 1.4/1.5, SD 2.1, SDXL base + refiner).
 
-Counterpart of ``image_editing_framework_tpu/models/configs.py``. The PnP
-injection-site tables arrive with the PnP editor.
+Counterpart of ``image_editing_framework_tpu/models/configs.py``, with the
+PnP injection-site tables.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 from image_editing_framework_torch.models.unet import UNetConfig
 
@@ -79,6 +81,42 @@ TINY_XL_UNET = UNetConfig(
     addition_time_embed_dim=8,
     projection_class_embeddings_input_dim=16 + 8 * 6,
 )
+
+
+# --- PnP injection sites (reference: pnp/model/register.py) -----------------
+
+
+def pnp_sites_sd(cfg: UNetConfig = SD15_UNET) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """SD: self-attn of up_blocks[1].attentions[1:3] + up_blocks[2:4].attentions[:]
+    (register.py:82-88), conv of up_blocks[1].resnets[1] (register.py:179).
+
+    The up-block numbering folds diffusers' up_blocks[0] (the attention-free
+    UpBlock2D) into index 0, so diffusers up_blocks[k] == our up index k.
+    """
+    _, _, up = cfg.forward_layout()
+    layers = []
+    skipped_first = False
+    for blk in up:
+        for j, tb in enumerate(blk):
+            # skip the first Transformer2D of the first attention-bearing up
+            # block ("not in the first block of the lowest resolution",
+            # pnp/model/register.py:82) — up_blocks[1].attentions[0] for SD.
+            if not skipped_first and j == 0:
+                skipped_first = True
+                continue
+            layers.extend(tb)
+    return tuple(layers), ("up1_res1",)
+
+
+def pnp_sites_xl(cfg: UNetConfig = SDXL_UNET) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """SDXL: all transformer blocks of up_blocks[1] (register.py:243-250),
+    conv of up_blocks[1].resnets[0] (register.py:339)."""
+    _, _, up = cfg.forward_layout()
+    layers = []
+    for tb in up[1]:
+        layers.extend(tb)
+    return tuple(layers), ("up1_res0",)
+
 
 SD_VAE_SCALING = 0.18215  # vae.config.scaling_factor for SD1.x/2.1
 SDXL_VAE_SCALING = 0.13025

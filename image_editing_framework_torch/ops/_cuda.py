@@ -1,12 +1,16 @@
 """Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and becomes one shared
-library, built on first use into ``_build/`` (ignored by git) under a name
+library, built on first use into the build directory under a name
 that carries a hash of the source and of the headers beside it
 (``csrc/*.cuh``), so an edited source or header is rebuilt and an unchanged
 one is loaded as it is. The assembler's report (``-Xptxas -v``:
 registers, shared memory and spills of every kernel) is kept beside the
 library. Nothing here runs at import time.
+
+The build directory is ``$IEF_TORCH_BUILD_DIR`` when that variable is set
+(for an installed package whose own directory is not writable), and the
+package's ``_build/`` (ignored by git) otherwise.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from typing import Dict, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD = os.path.join(_PKG, "_build")
+BUILD_DIR_ENV = "IEF_TORCH_BUILD_DIR"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 # name -> loaded library; a library is loaded once per process.
@@ -34,6 +38,12 @@ def _nvcc() -> str:
     return path
 
 
+def build_dir() -> str:
+    """Where the libraries are built: ``$IEF_TORCH_BUILD_DIR`` if set, else
+    the package's ``_build/``."""
+    return os.environ.get(BUILD_DIR_ENV) or os.path.join(_PKG, "_build")
+
+
 def _target(name: str) -> Tuple[str, str]:
     """The source and its library's path, named by a hash of the source and
     of every header in ``csrc/`` (which a source may include)."""
@@ -43,7 +53,7 @@ def _target(name: str) -> Tuple[str, str]:
     for path in [src] + headers:
         with open(path, "rb") as f:
             digest.update(f.read())
-    return src, os.path.join(BUILD, f"lib{name}_{digest.hexdigest()[:12]}.so")
+    return src, os.path.join(build_dir(), f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
 def build(name: str) -> str:
@@ -52,7 +62,7 @@ def build(name: str) -> str:
     src, out = _target(name)
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD, exist_ok=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

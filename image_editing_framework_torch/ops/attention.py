@@ -75,6 +75,33 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, n, h * d)
 
 
+def plan_operands(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    plan: Optional[SelfAttnPlan],
+    bias: Optional[torch.Tensor] = None,
+):
+    """The (q, k, v, bias) that ``self_attention`` hands the flash kernel:
+    the plan's gathers, S segments of K/V concatenated along the keys, and
+    the segment bias (0 or NEG_INF per key, materialised (B, S·N) f32) added
+    to ``bias``."""
+    if plan is None:
+        return q, k, v, bias
+    b, h, n, d = q.shape
+    q = q[plan.q_idx]
+    s = plan.k_idx.shape[1]
+    k = k[plan.k_idx.reshape(-1)].reshape(b, s, h, n, d)
+    k = k.transpose(1, 2).reshape(b, h, s * n, d)
+    v = v[plan.v_idx.reshape(-1)].reshape(b, s, h, n, d)
+    v = v.transpose(1, 2).reshape(b, h, s * n, d)
+    if s > 1:
+        seg = torch.where(plan.valid, 0.0, NEG_INF).to(torch.float32)  # (B, S)
+        seg = seg[:, :, None].expand(b, s, n).reshape(b, s * n)  # (B, S*N), materialised
+        bias = seg if bias is None else bias + seg
+    return q, k, v, bias
+
+
 def self_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -88,19 +115,14 @@ def self_attention(
     ``bias`` is an explicit per-key additive logit bias (B, Nk), added to any
     plan-segment bias (it addresses the post-gather key layout).
     """
-    b, h, n, d = q.shape
-    if plan is not None:
-        q = q[plan.q_idx]
-        s = plan.k_idx.shape[1]
-        k = k[plan.k_idx.reshape(-1)].reshape(b, s, h, n, d)
-        k = k.transpose(1, 2).reshape(b, h, s * n, d)
-        v = v[plan.v_idx.reshape(-1)].reshape(b, s, h, n, d)
-        v = v.transpose(1, 2).reshape(b, h, s * n, d)
-        if s > 1:
-            seg = torch.where(plan.valid, 0.0, NEG_INF).to(torch.float32)  # (B, S)
-            seg = seg.repeat_interleave(n, dim=1)  # (B, S*N)
-            bias = seg if bias is None else bias + seg
-    return flash_attention(q, k, v, bias)
+    return flash_attention(*plan_operands(q, k, v, plan, bias))
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Attention with a per-key additive logit bias (B, Nk), contiguous f32
+    — the masked MasaCtrl primitives (masactrl/model/attention_control.py:
+    142-151). Context parallelism (the JAX ``cp_mesh``) is not ported yet."""
+    return self_attention(q, k, v, None, bias=bias)
 
 
 def cross_attention_probs(q: torch.Tensor, k: torch.Tensor, sm_scale: Optional[float] = None) -> torch.Tensor:

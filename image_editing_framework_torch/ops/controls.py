@@ -1,6 +1,6 @@
-"""Editing controllers as precomputed schedules (the P2P slice).
+"""Editing controllers as precomputed schedules (P2P, MasaCtrl, PnP).
 
-Counterpart of ``image_editing_framework_tpu/ops/controls.py:48-222``. Every
+Counterpart of ``image_editing_framework_tpu/ops/controls.py:48-576``. Every
 controller decision — a function of (step, layer, is_cross, resolution) plus
 small precomputed tensors — is data:
 
@@ -10,7 +10,13 @@ small precomputed tensors — is data:
   - a ``SelfAttnPlan`` (batch-index Q/K/V remap fed to the flash kernel),
   - a cross-attention probability edit,
   - whether/what to record (LocalBlend maps),
-  and ResNet blocks ask ``resnet_hook`` (PnP feature injection, later).
+  - or a whole custom self-attention output (``self_override``: the
+    masked MasaCtrl variants),
+  and ResNet blocks ask ``resnet_hook`` (PnP feature injection).
+
+Per-step gates are 0-d bool tensors on the pipeline's device, applied with
+``torch.where``, and index tensors are made on the device (``arange``) or
+once per control, so that no step makes the host wait for the card.
 
 Batch layout everywhere: B = 2P, ``[u_0..u_{P-1}, c_0..c_{P-1}]`` with the
 source prompt at index 0 of each CFG half, so "edit only the conditional
@@ -24,10 +30,12 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from image_editing_framework_torch.core.config import P2PConfig
+from image_editing_framework_torch.core.config import MasaCtrlConfig, P2PConfig, PnPConfig
 from image_editing_framework_torch.ops import schedules, seq_aligner
-from image_editing_framework_torch.ops.attention import AttnSite, SelfAttnPlan
+from image_editing_framework_torch.ops.attention import AttnSite, SelfAttnPlan, masked_attention, self_attention
+from image_editing_framework_torch.ops.flash_attention import NEG_INF
 
 
 # ---------------------------------------------------------------------------
@@ -39,9 +47,9 @@ class NoneStep:
         return None
 
     def self_override(self, site: AttnSite, q, k, v, running=None):
-        """Full custom self-attention output (masked MasaCtrl variants, a
-        later slice); None means use the plan/flash path. ``running`` is the
-        dict of records from earlier sites of the same UNet forward."""
+        """Full custom self-attention output (the masked MasaCtrl variants);
+        None means use the plan/flash path. ``running`` is the dict of
+        records from earlier sites of the same UNet forward."""
         return None
 
     def bind_store(self, store, step_index):
@@ -195,3 +203,284 @@ def build_p2p_control(
         num_prompts=p,
         record_blend=record_blend,
     )
+
+
+# ---------------------------------------------------------------------------
+# MasaCtrl
+
+
+def key_bias(keep: torch.Tensor, batch: int) -> torch.Tensor:
+    """(batch, N) f32 per-key bias, 0 where ``keep`` and NEG_INF elsewhere,
+    materialised: the CUDA kernel takes a contiguous bias only."""
+    return torch.where(keep, 0.0, NEG_INF).to(torch.float32).repeat(batch, 1)
+
+
+def _resize_nearest(mask: torch.Tensor, side: int) -> torch.Tensor:
+    """(h, w) -> (side * side,) nearest resize with half-pixel centres, as
+    ``jax.image.resize(..., "nearest")`` (torch's ``"nearest"`` picks other
+    pixels when it shrinks)."""
+    return F.interpolate(mask[None, None], size=(side, side), mode="nearest-exact").reshape(-1)
+
+
+@dataclasses.dataclass
+class MasaCtrlStep(NoneStep):
+    """Mutual self-attention: at gated (step, layer), every element of each
+    CFG half attends to the half's *source* K/V
+    (masactrl/model/attention_control.py:59-66); "union" mode instead gives
+    target elements concat([source, self]) K/V (:102-103), the first
+    (source) segment masked by a per-key bias where it does not apply: for
+    the sources always (it repeats their own keys), for the targets at
+    ungated steps.
+
+    The layer set is static (ungated layers get no plan at all); only the
+    step gate is a tensor.
+    """
+
+    step_gate: torch.Tensor  # () bool — this step
+    layers: Tuple[int, ...] = ()
+    num_prompts: int = 2
+    union: bool = False
+
+    def self_plan(self, site: AttnSite, batch: int, device=None) -> Optional[SelfAttnPlan]:
+        if site.layer not in self.layers:
+            return None
+        p = self.num_prompts
+        gate = self.step_gate
+        iota = torch.arange(batch, dtype=torch.int64, device=gate.device)
+        half_src = (iota // p) * p
+        if not self.union:
+            kv = torch.where(gate, half_src, iota)
+            return SelfAttnPlan(q_idx=iota, k_idx=kv[:, None], v_idx=kv[:, None],
+                                valid=torch.ones((batch, 1), dtype=torch.bool, device=gate.device))
+        k_idx = torch.stack([half_src, iota], dim=1)  # (B, 2)
+        is_target = (iota % p) != 0
+        valid = torch.stack([gate & is_target, torch.ones_like(is_target)], dim=1)
+        return SelfAttnPlan(q_idx=iota, k_idx=k_idx, v_idx=k_idx, valid=valid)
+
+    def _source_kv(self, k, v):
+        """(each element's CFG-half source K, its V, a (B, 1, 1, 1) mask of
+        the target elements)."""
+        iota = torch.arange(k.shape[0], dtype=torch.int64, device=k.device)
+        half_src = (iota // self.num_prompts) * self.num_prompts
+        return k[half_src], v[half_src], ((iota % self.num_prompts) != 0)[:, None, None, None]
+
+
+def _fg_bg_blend(q, k_src, v_src, fg_s: torch.Tensor, mt: torch.Tensor) -> torch.Tensor:
+    """All queries against the source's fg keys (``fg_s``, (N,) bool) and
+    against its bg keys, blended by the target mask ``mt`` (N,):
+    ``out_fg * mt + out_bg * (1 - mt)``."""
+    b = q.shape[0]
+    out_fg = masked_attention(q, k_src, v_src, key_bias(fg_s, b))
+    out_bg = masked_attention(q, k_src, v_src, key_bias(~fg_s, b))
+    mt = mt[None, None, :, None]
+    return out_fg * mt + out_bg * (1.0 - mt)
+
+
+@dataclasses.dataclass
+class MasaCtrlMaskStep(MasaCtrlStep):
+    """Mask-guided MasaCtrl (masactrl/model/attention_control.py:110-190):
+    at gated layers, target queries attend the source K/V twice — restricted
+    to source-foreground keys and source-background keys — and the two
+    outputs blend by the target mask:
+
+        out_t = out_fg * mask_t + out_bg * (1 - mask_t)
+
+    Source branches run normal self-attention. ``mask_s`` / ``mask_t`` are
+    full-resolution (h, w) float masks, resized to each site's token grid.
+    """
+
+    mask_s: Optional[torch.Tensor] = None  # (h, w) source object mask
+    mask_t: Optional[torch.Tensor] = None  # (h, w) target object mask
+
+    def self_override(self, site: AttnSite, q, k, v, running=None):
+        if site.layer not in self.layers:
+            return None
+        side = int(q.shape[2] ** 0.5)
+        k_src, v_src, is_target = self._source_kv(k, v)
+        normal = self_attention(q, k, v, None)
+        blended = _fg_bg_blend(q, k_src, v_src, _resize_nearest(self.mask_s, side) > 0.5,
+                               _resize_nearest(self.mask_t, side))
+        return torch.where(is_target & self.step_gate, blended, normal)
+
+
+@dataclasses.dataclass
+class MasaCtrlAutoStep(MasaCtrlStep):
+    """Auto-masked MasaCtrl (masactrl/model/attention_control.py:192-330):
+    fg/bg masks are derived from 16x16 cross-attention maps of selected
+    tokens rather than supplied.
+
+    The masks at a gated self-attention site come from the mean of the 16x16
+    cross-attention maps recorded by earlier sites of the SAME forward (the
+    UNet threads its records down in execution order — ``running``), like the
+    reference's ``self.cross_attns`` list that ``after_step`` clears
+    (attention_control.py:224-226, 273-296). With no maps recorded yet the
+    target falls back to plain mutual attention (:293-296).
+    """
+
+    thres: float = 0.1
+    ref_idx: Tuple[int, ...] = (1,)
+    cur_idx: Tuple[int, ...] = (1,)
+
+    def record_key(self, site: AttnSite) -> Optional[str]:
+        if site.is_cross and site.seq_len == _RES16_SEQ:
+            return site.key
+        return None
+
+    def record(self, site: AttnSite, probs: torch.Tensor) -> torch.Tensor:
+        return probs.mean(dim=1)  # (2P, 256, 77), mean over heads
+
+    def masks_from(self, running) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mask_s16, mask_t16), each (256,), from the maps recorded so far
+        this forward (reference aggregate_cross_attn_map,
+        attention_control.py:257-269)."""
+        avg = torch.stack([running[key] for key in sorted(running)]).mean(dim=0)  # (2P, 256, 77)
+
+        def token_map(idx):
+            img = sum(avg[..., i] for i in idx)  # (2P, 256); integer indexing copies no index to the card
+            lo = img.amin(dim=1, keepdim=True)
+            hi = img.amax(dim=1, keepdim=True)
+            return (img - lo) / torch.clamp(hi - lo, min=1e-8)
+
+        p = self.num_prompts
+        return token_map(self.ref_idx)[p], token_map(self.cur_idx)[2 * p - 1]  # conditional source, target
+
+    def self_plan(self, site: AttnSite, batch: int, device=None) -> Optional[SelfAttnPlan]:
+        return None  # all logic lives in self_override
+
+    def self_override(self, site: AttnSite, q, k, v, running=None):
+        if site.layer not in self.layers:
+            return None
+        k_src, v_src, is_target = self._source_kv(k, v)
+        normal = self_attention(q, k, v, None)
+        mutual = self_attention(q, k_src, v_src, None)
+        if not running:
+            # no cross maps recorded yet this forward: plain mutual attention
+            # for targets (attention_control.py:293-296)
+            return torch.where(is_target & self.step_gate, mutual, normal)
+
+        side = int(q.shape[2] ** 0.5)
+        ms, mt = (_resize_nearest(m.reshape(16, 16), side) >= self.thres for m in self.masks_from(running))
+        masked = _fg_bg_blend(q, k_src, v_src, ms, mt.to(torch.float32))
+        return torch.where(is_target & self.step_gate, masked, normal)
+
+
+@dataclasses.dataclass
+class MasaCtrlControl:
+    step_gate: torch.Tensor  # (num_steps,) bool
+    layers: Tuple[int, ...] = ()
+    num_prompts: int = 2
+    union: bool = False
+    mask_s: Optional[torch.Tensor] = None
+    mask_t: Optional[torch.Tensor] = None
+    auto_mask: bool = False
+    thres: float = 0.1
+    ref_idx: Tuple[int, ...] = (1,)
+    cur_idx: Tuple[int, ...] = (1,)
+
+    def at_step(self, i: int) -> MasaCtrlStep:
+        common = dict(step_gate=self.step_gate[i], layers=self.layers, num_prompts=self.num_prompts,
+                      union=self.union)
+        if self.auto_mask:
+            return MasaCtrlAutoStep(**common, thres=self.thres, ref_idx=self.ref_idx, cur_idx=self.cur_idx)
+        if self.mask_s is not None:
+            return MasaCtrlMaskStep(**common, mask_s=self.mask_s, mask_t=self.mask_t)
+        return MasaCtrlStep(**common)
+
+
+def build_masactrl_control(
+    num_steps: int,
+    num_layers: int,
+    cfg: MasaCtrlConfig,
+    num_prompts: int = 2,
+    mask_s=None,
+    mask_t=None,
+    auto_mask: bool = False,
+    thres: float = 0.1,
+    ref_token_idx: Tuple[int, ...] = (1,),
+    cur_token_idx: Tuple[int, ...] = (1,),
+    device=None,
+) -> MasaCtrlControl:
+    """The MasaCtrl control, its gate and masks on ``device``."""
+    gate = schedules.masactrl_gate(num_steps, num_layers, cfg.start_step, cfg.start_layer, cfg.step_idx,
+                                   cfg.layer_idx)
+
+    def mask(m):
+        return None if m is None else torch.as_tensor(m, dtype=torch.float32, device=device)
+
+    return MasaCtrlControl(
+        step_gate=torch.as_tensor(gate.any(axis=1), device=device),
+        layers=tuple(int(i) for i in np.nonzero(gate.any(axis=0))[0]),
+        num_prompts=num_prompts,
+        union=cfg.mode == "union",
+        mask_s=mask(mask_s),
+        mask_t=mask(mask_t),
+        auto_mask=auto_mask,
+        thres=thres,
+        ref_idx=tuple(ref_token_idx),
+        cur_idx=tuple(cur_token_idx),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Plug-and-Play
+
+# Injection gathers the *conditional source* (index 2 of [u_s, u_t, c_s, c_t])
+# into both target branches (pnp/model/register.py:46-52, :163-168).
+_PNP_INJECT_IDX = (0, 2, 2, 2)
+
+
+@dataclasses.dataclass
+class PnPStep(NoneStep):
+    """One denoising step of Plug-and-Play: at the attention sites, Q and K
+    of every branch come from the conditional source while ``qk_gate`` is
+    on (V stays each branch's own); at the ResNet sites, the conditional
+    source's features replace the targets' while ``conv_gate`` is on."""
+
+    qk_gate: torch.Tensor  # () bool
+    conv_gate: torch.Tensor  # () bool
+    inject: torch.Tensor  # (4,) _PNP_INJECT_IDX, on the gates' device
+    attn_layers: Tuple[int, ...] = ()
+    conv_keys: Tuple[str, ...] = ()
+
+    def self_plan(self, site: AttnSite, batch: int, device=None) -> Optional[SelfAttnPlan]:
+        if site.layer not in self.attn_layers:
+            return None
+        if batch != 4:
+            raise ValueError(f"PnP operates on [u_src, u_tgt, c_src, c_tgt], got a batch of {batch}")
+        dev = self.qk_gate.device
+        iota = torch.arange(batch, dtype=torch.int64, device=dev)
+        idx = torch.where(self.qk_gate, self.inject, iota)
+        return SelfAttnPlan(q_idx=idx, k_idx=idx[:, None], v_idx=iota[:, None],
+                            valid=torch.ones((batch, 1), dtype=torch.bool, device=dev))
+
+    def resnet_hook(self, key: str, h: torch.Tensor) -> torch.Tensor:
+        if key not in self.conv_keys:
+            return h
+        return torch.where(self.conv_gate, h[self.inject], h)
+
+
+@dataclasses.dataclass
+class PnPControl:
+    qk_gate: torch.Tensor  # (num_steps,) bool
+    conv_gate: torch.Tensor  # (num_steps,) bool
+    inject: torch.Tensor  # (4,) _PNP_INJECT_IDX, made once on the gates' device
+    attn_layers: Tuple[int, ...] = ()
+    conv_keys: Tuple[str, ...] = ()
+
+    def at_step(self, i: int) -> PnPStep:
+        return PnPStep(qk_gate=self.qk_gate[i], conv_gate=self.conv_gate[i], inject=self.inject,
+                       attn_layers=self.attn_layers, conv_keys=self.conv_keys)
+
+
+def build_pnp_control(
+    num_steps: int,
+    cfg: PnPConfig,
+    attn_layers: Tuple[int, ...],
+    conv_keys: Tuple[str, ...],
+    device=None,
+) -> PnPControl:
+    """The PnP control, its gates on ``device``."""
+    qk, conv = schedules.pnp_gates(num_steps, cfg.pnp_attn_t, cfg.pnp_f_t)
+    return PnPControl(qk_gate=torch.as_tensor(qk, device=device), conv_gate=torch.as_tensor(conv, device=device),
+                      inject=torch.tensor(_PNP_INJECT_IDX, device=device), attn_layers=tuple(attn_layers),
+                      conv_keys=tuple(conv_keys))

@@ -1,19 +1,21 @@
-"""Precomputed P2P step schedules (host-side, NumPy).
+"""Precomputed step schedules (host-side, NumPy).
 
 Copy of ``image_editing_framework_tpu/ops/schedules.py`` for the functions
-the P2P slice needs; the port keeps its own so it imports nothing of the JAX
-package. Every gate is a (steps,) or (steps + 1, ...) table that the denoise
-loop indexes by step.
+the P2P, MasaCtrl and PnP editors need; the port keeps its own so it imports
+nothing of the JAX package. Every gate is a (steps,) or (steps + 1, ...)
+table that the denoise loop indexes by step.
 
 Sources of semantics:
   * time-words cross-replace alpha  — p2p/model/ptp_utils.py:54-83
   * self-replace step window        — p2p/model/attention_base.py:104-106,114
+  * MasaCtrl step/layer gate        — masactrl/model/attention_control.py:11-29
+  * PnP injection thresholds        — pnp/model/sd_utils.py:16-20
   * LocalBlend word weights         — p2p/model/ptp_utils.py:6-32
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -70,6 +72,37 @@ def self_replace_gate(
     gate = np.zeros(num_steps, dtype=bool)
     gate[start:end] = True
     return gate
+
+
+def masactrl_gate(
+    num_steps: int,
+    num_layers: int,
+    start_step: int = 4,
+    start_layer: int = 10,
+    step_idx: Optional[Sequence[int]] = None,
+    layer_idx: Optional[Sequence[int]] = None,
+) -> np.ndarray:
+    """(num_steps, num_layers) bool gate for mutual self-attention.
+
+    ``num_layers`` counts transformer blocks in forward order (16 for SD,
+    70 for SDXL — masactrl/model/attention_control.py:11-14); the reference's
+    ``cur_att_layer // 2`` is that same block index.
+    """
+    steps = np.zeros(num_steps, dtype=bool)
+    steps[list(step_idx) if step_idx is not None else range(start_step, num_steps)] = True
+    layers = np.zeros(num_layers, dtype=bool)
+    layers[list(layer_idx) if layer_idx is not None else range(start_layer, num_layers)] = True
+    return steps[:, None] & layers[None, :]
+
+
+def pnp_gates(num_steps: int, pnp_attn_t: float, pnp_f_t: float) -> Tuple[np.ndarray, np.ndarray]:
+    """(qk_gate, conv_gate), each (num_steps,) bool: True for the first
+    ``int(num_steps * frac)`` denoising steps (pnp/model/sd_utils.py:16-20)."""
+    qk = np.zeros(num_steps, dtype=bool)
+    conv = np.zeros(num_steps, dtype=bool)
+    qk[: int(num_steps * pnp_attn_t)] = True
+    conv[: int(num_steps * pnp_f_t)] = True
+    return qk, conv
 
 
 def blend_alpha_layers(

@@ -53,15 +53,17 @@ def test_chip_smoke_builds_every_kernel_source():
 
 
 def test_chip_smoke_wires_every_phase_into_main():
-    """main() runs the earlier phases and the SDXL slice's: the probe, both
-    models' main, NTI and profile phases, and the refiner; the kernels line
-    names all four kernels; the XL shapes are SDXL's 70 sites at head dim 64."""
+    """main() runs the earlier phases and the later slices': the probe, both
+    models' main, NTI, profile, MasaCtrl and PnP phases, and the refiner;
+    the kernels line names all four kernels and the forward's biased
+    figures; the XL shapes are SDXL's 70 sites at head dim 64."""
     import inspect
 
     smoke = _load_script()
     source = inspect.getsource(smoke.main)
     for phase in ("phase_device", "phase_kernels", "phase_bwd_kernels", "phase_probe", "phase_tiny",
-                  "phase_main_path", "phase_nti_path", "phase_profile", "phase_refiner"):
+                  "phase_main_path", "phase_nti_path", "phase_profile", "phase_masactrl_path", "phase_pnp_path",
+                  "phase_refiner"):
         assert callable(getattr(smoke, phase)) and phase in source, phase
     assert '("sd", ""), ("xl", "xl_")' in source  # both models go through main, NTI and profile
     for kernel in ("flash_fwd", "flash_bwd_", "mma_probe"):
@@ -69,7 +71,14 @@ def test_chip_smoke_wires_every_phase_into_main():
     assert smoke.PATH_SHAPES["xl"] == [(4096, 64, 10, 10), (1024, 64, 20, 60)]
     assert smoke.SITES == {"sd": 16, "xl": 70} and smoke.GRAD_SITES == {"sd": 15, "xl": 69}
     assert smoke.PATH_SHAPES["sd"][0] == (4096, 40, 8, 5)  # the SD1.5 shapes stay
-    assert "xl_tiny" in inspect.getsource(smoke.phase_tiny)
+    assert "xl_tiny" in inspect.getsource(smoke.phase_tiny) and "tiny_edits" in inspect.getsource(smoke.phase_tiny)
+    assert '"at_bias"' in source and '"masactrl_path": launches["masactrl"]' in source
+    # the biased shapes: union doubles the gated sites' keys, mask keeps them
+    assert sum(calls for v, *_, calls in smoke.BIAS_SHAPES["sd"] if v == "union") == 6
+    assert sum(calls for v, *_, calls in smoke.BIAS_SHAPES["xl"] if v == "union") == 16
+    for shapes in smoke.BIAS_SHAPES.values():
+        for variant, n, nk, d, h, calls in shapes:
+            assert nk == (2 * n if variant == "union" else n)
     last = source.rstrip().splitlines()
     assert '"ok": True' in "".join(last[-4:])  # the result object is printed last
 
@@ -140,3 +149,23 @@ def test_planted_backward_faults_exceed_the_limit_at_the_new_tiles(nq, nk, d):
     assert set(faults) == {"no_di", "skipped_key_tile_dq", "skipped_query_tile_dkv"}
     for name, reads in faults.items():
         assert reads and all(err > tols[out] for out, err in reads.items()), (name, reads, tols)
+
+
+@pytest.mark.parametrize("variant,n,d", [("union", 256, 64), ("union", 64, 160), ("mask", 256, 40)])
+def test_biased_operands_and_faults(variant, n, d):
+    """MasaCtrl's operands as the path builds them (contiguous f32 bias,
+    the union plan's segments, the mask's source K/V): the bf16 limit
+    rejects a kernel that ignores the bias at the union shapes, a skipped
+    key tile and a missing accumulator rescale behind the NEG_INF keys."""
+    from image_editing_framework_torch.ops import flash_attention as fa
+
+    smoke = _load_script()
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, bias = smoke.bias_operands(variant, 4, 2, n, d, gen, device="cpu")
+    assert bias.is_contiguous() and bias.dtype == torch.float32 and bias.shape == (4, k.shape[2])
+    assert k.shape[2] == (2 * n if variant == "union" else n) and k.shape[2] > smoke.fwd_key_tile(d)
+    ref = fa.flash_attention_reference(q, k, v, bias)
+    faults = smoke.fault_readings(q, k, v, ref, bias)
+    tol = fa.parity_atol(ref)
+    must_fail = ["skipped_key_tile", "no_acc_rescale"] + (["bias_ignored"] if variant == "union" else [])
+    assert all(faults[name] > tol for name in must_fail), (faults, tol)

@@ -80,6 +80,59 @@ def test_flash_kernel_is_deterministic(cuda_device, d):
         assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
+# MasaCtrl's biased calls at their gated sites, CFG batch 4: (variant, heads,
+# tokens, head dim); union doubles the keys, mask keeps them (SD1.5: 1024/80
+# and 4096/40; SDXL: 1024/64 with 20 heads and 4096/64 with 10)
+MASACTRL_SHAPES = [(variant, h, n, d) for variant in ("union", "mask")
+                   for h, n, d in ((8, 1024, 80), (8, 4096, 40), (20, 1024, 64), (10, 4096, 64))]
+
+
+def _masactrl_operands(device, variant, h, n, d, gate):
+    """(q, k, v, bias) as MasaCtrl's sites pass them: head-split views, the
+    union plan's gathered segments and segment bias (``gate``: a gated step),
+    or the source K/V gathered for the mask variants with a random fg bias."""
+    from image_editing_framework_torch.ops import controls as ctl
+    from image_editing_framework_torch.ops.attention import AttnSite, plan_operands
+
+    g = torch.Generator(device=device).manual_seed(2)
+    q, k, v = (split_heads(torch.randn(4, n, h * d, device=device, dtype=torch.bfloat16, generator=g), h)
+               for _ in range(3))
+    if variant == "union":
+        step = ctl.MasaCtrlStep(step_gate=torch.tensor(gate, device=device), layers=(0,), union=True)
+        return plan_operands(q, k, v, step.self_plan(AttnSite(0, "up", n, False), 4))
+    src = torch.tensor([0, 0, 2, 2], device=device)
+    return q, k[src], v[src], ctl.key_bias(torch.rand(n, device=device, generator=g) > 0.5, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", [True, False])
+@pytest.mark.parametrize("variant,h,n,d", MASACTRL_SHAPES)
+def test_flash_kernel_matches_plain_version_at_masactrl_shapes(cuda_device, variant, h, n, d, gate):
+    """The biased kernel (whole key tiles at NEG_INF before the open ones,
+    logits in natural units) against its plain version at the shapes
+    MasaCtrl's union and mask variants give it, at a gated and an ungated
+    step, within ``parity_atol``."""
+    q, k, v, bias = _masactrl_operands(cuda_device, variant, h, n, d, gate)
+    assert k.shape[2] == (2 * n if variant == "union" else n) and bias.is_contiguous()
+    out = tfa.flash_attention(q, k, v, bias)
+    ref = tfa.flash_attention_reference(q, k, v, bias)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=tfa.parity_atol(ref), rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_a_broadcast_bias(cuda_device):
+    """A bias made with ``expand`` (batch stride 0) is refused on the card,
+    where the plain version would take it: the controls materialise theirs."""
+    q, k, v = (torch.randn(2, 2, 128, 64, device=cuda_device, dtype=torch.bfloat16) for _ in range(3))
+    bias = torch.zeros(128, device=cuda_device).expand(2, 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention(q, k, v, bias)
+    out = tfa.flash_attention(q, k, v, bias.contiguous())
+    ref = tfa.flash_attention_reference(q, k, v, bias)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tfa.parity_atol(ref), rtol=0)
+
+
 GRID = [(2, 8, 1024, 1024, 40, False, True), (2, 8, 256, 256, 80, False, True), (1, 8, 64, 64, 160, False, False),
         (2, 3, 130, 1000, 64, True, False), (2, 2, 70, 77, 16, True, True), (1, 2, 33, 50, 32, False, False)]
 

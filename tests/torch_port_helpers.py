@@ -76,6 +76,21 @@ class RecordingBlend(LocalBlend):
 GRAD_MARGIN = 1e-7
 
 
+def recorded_latents(monkeypatch, module):
+    """The final latents that ``module.denoise`` returns from now on (the
+    JAX package's returns (latents, records)), recorded on their way out."""
+    seen = []
+    real = module.denoise
+
+    def recording(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(out[0] if isinstance(out, tuple) else out)
+        return out
+
+    monkeypatch.setattr(module, "denoise", recording)
+    return seen
+
+
 def recorded_grads(monkeypatch):
     """Every gradient ``torch.autograd.grad`` returns from now on (the port's
     NTI takes one per inner iteration), recorded on its way out."""
