@@ -22,7 +22,8 @@ Phases, one line of output each (any failure exits non-zero):
      the kernel they check; at the biased shapes also the bias ignored)
      that the bf16 limit must reject; SDPA with the same float mask as the
      biased shapes' library time; the forward
-     wrapper's host µs per call at a batch-1 SDXL site;
+     wrapper's host µs per call at a batch-1 SDXL site; the backward at
+     NTI's batch-1 shapes and at pix2pix-zero's CFG batch 2 at every site;
      probe: the tile-shape probe kernel against its plain version for
      every layout and head dim, every block's value, then its timed table
      through the tool's entry point;
@@ -30,7 +31,8 @@ Phases, one line of output each (any failure exits non-zero):
      inversion + edit, on the card against the same pipeline on the CPU (the
      kernels' plain versions); the same for the tiny SDXL pipeline, its NTI
      with and without the checkpointed UNet; on both, MasaCtrl (mutual,
-     union, mask, auto mask, direction) and PnP;
+     union, mask, auto mask, direction), PnP and pix2pix-zero, whose guided
+     steps never synchronise;
   4. main path: SD1.5 at full width (random weights from a seed), 512²,
      bf16 — image2latent, 50-step DDIM inversion, 50-step P2P replace edit
      with LocalBlend at CFG batch 4, decode — with the launch counts of
@@ -47,11 +49,18 @@ Phases, one line of output each (any failure exits non-zero):
      mutual edit with the NTI path's embeddings; pnp path:
      ``cli.run_method("pnp", ...)`` on the same inversion; exact launch
      counts of each run;
-  8. xl main path, xl nti path, xl profile, xl masactrl path, xl pnp path:
-     the same on SDXL at full width, 1024², bf16 (the NTI path with 2 inner
-     iterations per step and the checkpointed UNet), decode full-frame and
-     tiled;
-  9. refiner: img2img through the SDXL refiner at 1024², strength 0.3;
+  8. p2z path: pix2pix-zero on the same model through ``cli.invert(...,
+     "ddim", "p2z")`` and ``cli.run_method("p2z", ...)`` (50 guided steps,
+     each a UNet forward and backward to the input latent at CFG batch 2,
+     and a forward on the updated latent), then the edit alone on the NTI
+     path's embeddings; exact launch counts of each run, seconds of each
+     pass, and one guided step under torch.profiler;
+  9. xl main path, xl nti path, xl profile, xl masactrl path, xl pnp path,
+     xl p2z path: the same on SDXL at full width, 1024², bf16 (the NTI path
+     with ``XL_INNER_STEPS`` inner iterations per step and the checkpointed
+     UNet; p2z with the references recomputed from pass 1's trajectory and
+     the checkpointed UNet, the XL defaults), decode full-frame and tiled;
+  10. refiner: img2img through the SDXL refiner at 1024², strength 0.3;
 then each phase's seconds, the kernels JSON line, the card line, and the
 result line last.
 """
@@ -93,11 +102,17 @@ BIAS_SHAPES = {
     "xl": [("union", 1024, 2048, 64, 20, 10), ("union", 4096, 8192, 64, 10, 6),
            ("mask", 1024, 1024, 64, 20, 20), ("mask", 4096, 4096, 64, 10, 12)],
 }
+# pix2pix-zero's guided step differentiates its loss with respect to the
+# UNet's input latent at CFG batch 2: the gradient flows through every site
+# of PATH_SHAPES, the first included
+P2Z_BATCH = 2
 SITES = {model: sum(shape[3] for shape in shapes) for model, shapes in PATH_SHAPES.items()}
 GRAD_SITES = {model: sum(shape[3] for shape in shapes) for model, shapes in GRAD_SHAPES.items()}
 SOURCES = ("flash_fwd", "flash_bwd", "mma_probe")
 HEADS = 8  # of the edge cases
-XL_INNER_STEPS = 2  # NTI inner iterations per step on the XL path (the default is 10)
+# NTI inner iterations per step on the XL path (the default is 10); 1 since
+# the p2z paths joined the script, to keep it within half its time limit
+XL_INNER_STEPS = 1
 PROBE_RTOL = 1e-6  # probe kernel vs plain version, relative to the sum of the terms' magnitudes
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 PEAK_F32 = 67e12  # CUDA-core f32 FLOP/s
@@ -108,7 +123,7 @@ BWD_DQ_KEY_TILE = 128  # keys per streamed tile of the bf16 dQ kernel up to d = 
 BWD_DQ_KEY_TILE_WIDE = 64  # ... at d = 160 (kDqBKWide)
 BWD_DKV_QUERY_TILE = 64  # queries per streamed tile of the bf16 dK/dV kernel up to d = 80 (kDkvBQ)
 BWD_DKV_QUERY_TILE_WIDE = 32  # ... at d = 160 (kDkvBQWide)
-PROFILE_REPS = 10
+PROFILE_REPS = 4
 
 
 def fwd_key_tile(d):
@@ -141,9 +156,9 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, min_ms=50.0):
+def cuda_ms(fn, min_ms=50.0, warmup=3):
     """Mean ms of fn() over a run of launches timed with CUDA events."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -342,6 +357,27 @@ def bias_operands(variant, b, h, n, d, gen, device="cuda"):
     return q, k[half_src], v[half_src], ctl.key_bias(fg, b)
 
 
+def hold_forward(out, ref, out_lse=None, ref_lse=None):
+    """The flash forward's output (and lse) against its plain version's:
+    O within ``parity_atol``, lse within 1e-3 on the rows where the plain
+    lse is finite and infinite on the others. Returns (O error, its limit,
+    lse error)."""
+    from image_editing_framework_torch.ops import flash_attention as fa
+
+    if out.is_cuda:
+        torch.cuda.synchronize()
+    lse_err = None
+    if ref_lse is not None:
+        finite = torch.isfinite(ref_lse)
+        lse_err = (out_lse[finite] - ref_lse[finite]).abs().max().item() if finite.any() else 0.0
+        if not torch.equal(torch.isfinite(out_lse), finite) or lse_err > 1e-3:
+            raise AssertionError(f"lse mismatch {lse_err}")
+    err, tol = (out.float() - ref.float()).abs().max().item(), fa.parity_atol(ref)
+    if not math.isfinite(err) or err > tol:
+        raise AssertionError(f"flash kernel disagrees with its plain version: {err} > {tol}")
+    return err, tol, lse_err
+
+
 def phase_kernels(gen):
     """Kernel vs plain version; times at the paths' shapes. Returns the
     worst errors, per model the sums over the sites of one CFG-batch UNet
@@ -372,16 +408,9 @@ def phase_kernels(gen):
         q, k, v = make(nq), make(nk), make(nk)
         out = fa.flash_attention(q, k, v, bias, return_lse=lse)
         ref = fa.flash_attention_reference(q, k, v, bias, return_lse=lse)
-        torch.cuda.synchronize()
         if lse:
             (out, out_lse), (ref, ref_lse) = out, ref
-            finite = torch.isfinite(ref_lse)
-            lse_err = (out_lse[finite] - ref_lse[finite]).abs().max().item() if finite.any() else 0.0
-            if not torch.equal(torch.isfinite(out_lse), finite) or lse_err > 1e-3:
-                raise AssertionError(f"lse mismatch {lse_err}")
-        err, tol = (out.float() - ref.float()).abs().max().item(), fa.parity_atol(ref)
-        if not math.isfinite(err) or err > tol:
-            raise AssertionError(f"flash kernel disagrees with its plain version: {err} > {tol}")
+        err, tol, _ = hold_forward(out, ref, *((out_lse, ref_lse) if lse else ()))
         worst[dtype] = max(worst[dtype], err)
         row = dict(dtype=str(dtype).split(".")[1], shape=[b, h, nq, nk, d], strides=list(q.stride()),
                    bias=bias is not None, lse=lse, max_abs_err=err, tol=tol)
@@ -506,9 +535,10 @@ def bwd_fault_readings(q, k, v, do, o, lse, ref):
 
 def phase_bwd_kernels(gen):
     """Both backward kernels against their plain version; times at NTI's
-    shapes. Returns the worst errors and, per model and kernel, the sums over
-    the sites of one inner iteration (one UNet backward at batch 1: 15 sites
-    for SD1.5, 69 for SDXL)."""
+    and pix2pix-zero's shapes. Returns the worst errors and, per model and
+    kernel, the sums over the sites of one NTI inner iteration (one UNet
+    backward at batch 1: 15 sites for SD1.5, 69 for SDXL) and of one p2z
+    guided step (at CFG batch 2: all 16 / 70 sites)."""
     from image_editing_framework_torch.ops import flash_attention as fa
     from image_editing_framework_torch.ops.attention import split_heads
     from image_editing_framework_torch.tools.bench_flash_fwd import busy_ms, graph_ms
@@ -516,9 +546,10 @@ def phase_bwd_kernels(gen):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     worst = {dtype: {"dq": 0.0, "dkv": 0.0} for dtype in (torch.bfloat16, torch.float32)}
     keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "flops", "bytes")
-    sums = {model: {kernel: dict.fromkeys(keys, 0.0) for kernel in ("dq", "dkv", "all")} for model in GRAD_SHAPES}
+    sums, p2z_sums = ({model: {kernel: dict.fromkeys(keys, 0.0) for kernel in ("dq", "dkv", "all")}
+                       for model in GRAD_SHAPES} for _ in range(2))
 
-    def check(dtype, b, h, nq, nk, d, bias=None, timed=False, sites=0, zero_batch=None, model=None):
+    def check(dtype, b, h, nq, nk, d, bias=None, timed=False, sites=0, zero_batch=None, model=None, into=sums):
         """Path shapes (``model`` given) come as the UNet and autograd give
         them: head-split views of (B, N, H·D) tensors, dO included; the edge
         cases as contiguous tensors."""
@@ -528,10 +559,15 @@ def phase_bwd_kernels(gen):
             return torch.randn(b, h, n, d, device="cuda", dtype=dtype, generator=gen)
 
         q, k, v, do = make(nq), make(nk), make(nk), make(nq)
+        # the forward's lse instantiation at the gradient's shapes, held on
+        # its own: the plain backward reads the plain forward's o and lse,
+        # so a wrong kernel o or lse cannot cancel between the two sides
         o, lse = fa.flash_attention(q, k, v, bias, return_lse=True)
+        ref_o, ref_lse = fa.flash_attention_reference(q, k, v, bias, return_lse=True)
+        fwd_err, fwd_tol, lse_err = hold_forward(o, ref_o, lse, ref_lse)
         copies = fa.flash_attention_bwd.copies
         got = fa.flash_attention_bwd(q, k, v, bias, o, do, lse)
-        ref = fa.flash_attention_bwd_reference(q, k, v, bias, o, do, lse)
+        ref = fa.flash_attention_bwd_reference(q, k, v, bias, ref_o, do, ref_lse)
         torch.cuda.synchronize()
         if fa.flash_attention_bwd.copies != copies:
             raise AssertionError(f"dO with strides {do.stride()} was copied")
@@ -546,11 +582,12 @@ def phase_bwd_kernels(gen):
         worst[dtype]["dq"] = max(worst[dtype]["dq"], errs["dq"])
         worst[dtype]["dkv"] = max(worst[dtype]["dkv"], errs["dk"], errs["dv"])
         row = dict(dtype=str(dtype).split(".")[1], shape=[b, h, nq, nk, d], strides=list(do.stride()),
-                   bias=bias is not None, max_abs_err=errs, tol=tols)
+                   bias=bias is not None, max_abs_err=errs, tol=tols,
+                   forward=dict(max_abs_err=fwd_err, tol=fwd_tol, lse_max_abs_err=lse_err))
         if model:
             row["model"] = model
         if timed and dtype == torch.bfloat16:
-            row["faults"] = faults = bwd_fault_readings(q, k, v, do, o, lse, ref)
+            row["faults"] = faults = bwd_fault_readings(q, k, v, do, ref_o, ref_lse, ref)
             passed = [name for name, reads in faults.items() if not any(e > tols[out] for out, e in reads.items())]
             if passed:
                 raise AssertionError(f"the bf16 limits {tols} do not reject the planted faults {passed}: {faults}")
@@ -577,7 +614,7 @@ def phase_bwd_kernels(gen):
                     for key, val in (("ms", ms), ("device_ms", device_ms), ("plain_ms", plain_ms),
                                      ("library_ms", library_ms), ("library_device_ms", library_device_ms),
                                      ("flops", flops), ("bytes", nbytes)):
-                        sums[model][kernel][key] += sites * val
+                        into[model][kernel][key] += sites * val
             row.update(plain_ms=plain_ms, library_ms=library_ms, library_device_ms=library_device_ms)
         emit("kernel", name="flash_bwd", **row)
 
@@ -585,6 +622,10 @@ def phase_bwd_kernels(gen):
         for model, shapes in GRAD_SHAPES.items():
             for n, d, h, sites in shapes:
                 check(dtype, 1, h, n, n, d, timed=model == "sd" or dtype == torch.bfloat16, sites=sites, model=model)
+        for model, shapes in PATH_SHAPES.items():  # f32 is off p2z's path: checked, not timed
+            for n, d, h, sites in shapes:
+                check(dtype, P2Z_BATCH, h, n, n, d, timed=dtype == torch.bfloat16, sites=sites, model=model,
+                      into=p2z_sums)
         for nk in (77, 1000):  # Nq and Nk off the 64-row blocks and both kernels' streamed tiles
             check(dtype, 2, HEADS, 130, nk, 40)
         bias = torch.zeros(2, 1000, device="cuda")
@@ -594,11 +635,11 @@ def phase_bwd_kernels(gen):
         bias = torch.zeros(2, 512, device="cuda")
         bias[0] = float("-inf")  # every logit -inf: zero gradients
         check(dtype, 2, HEADS, 64, 512, 160, bias=bias, zero_batch=0)
-    for part in sums.values():
+    for part in list(sums.values()) + list(p2z_sums.values()):
         for kernel in part:
             part[kernel]["bound_ms"], part[kernel]["bound_by"] = bound_ms(
                 part[kernel]["flops"], part[kernel]["bytes"], torch.bfloat16)
-    return worst, sums
+    return worst, sums, p2z_sums
 
 
 def phase_probe():
@@ -694,6 +735,67 @@ def tiny_edits(pipe, model_type):
     return finals, min(gaps, default=None)
 
 
+def tiny_p2z(pipe, model_type):
+    """The tiny pipeline's pix2pix-zero edit from one seeded start latent:
+    SD with the references recorded in pass 1, XL with them recomputed and
+    the checkpointed UNet forced on (the XL defaults at 1024²), both with
+    per-step NTI embeddings. Returns the final latents (reconstruction,
+    edit) on the CPU."""
+    from image_editing_framework_torch.core.config import P2ZConfig, SamplerConfig
+    from image_editing_framework_torch.methods.p2z import p2z_edit
+
+    prompts = ["a cat sitting on the grass", "a dog sitting on the grass"]
+    rng = np.random.RandomState(5)
+    latent = torch.from_numpy(rng.randn(1, 16, 16, 4).astype(np.float32)).to(pipe.device)
+    width = pipe.unet.config.cross_attention_dim
+    uncond = torch.from_numpy((rng.randn(4, 77, width) * 0.5).astype(np.float32)).to(pipe.device)
+    cfg = P2ZConfig(recompute_refs=True, remat_grad=True) if model_type == "xl" else P2ZConfig()
+    finals, decode = [], pipe.latent2image
+
+    def recording_decode(lat, **kw):
+        finals.append(lat.cpu())
+        return decode(lat, **kw)
+
+    pipe.latent2image = recording_decode
+    try:
+        p2z_edit(pipe, prompts, latent, cfg, SamplerConfig(height=32, width=32), uncond_seq=uncond)
+    finally:
+        del pipe.latent2image
+    return finals
+
+
+def p2z_sync_free(pipe, model_type):
+    """pix2pix-zero's pass 2 (4 guided steps) on the tiny pipeline on the
+    card under ``torch.cuda.set_sync_debug_mode("error")``: the gradient,
+    the SGD step, the noise forward and the DDIM step never make the host
+    wait for the card (a synchronising call raises). SD with recorded
+    references, XL with recomputed ones and the checkpointed UNet."""
+    from image_editing_framework_torch.methods import common, p2z
+    from image_editing_framework_torch.methods.base import denoise
+    from image_editing_framework_torch.ops.controls import P2ZControl
+
+    prompts = ["a cat sitting on the grass", "a dog sitting on the grass"]
+    xl = model_type == "xl"
+    latent = torch.randn(1, 16, 16, 4, device="cuda")
+    uncond = torch.randn(4, 77, pipe.unet.config.cross_attention_dim, device="cuda")
+    ctx_src, added_src = common.prepare_conditioning(pipe, prompts[:1], 32, 32)
+    ctx, added = common.prepare_conditioning(pipe, prompts[1:], 32, 32)
+    _, refs, traj = denoise(pipe, latent, ctx_src, P2ZControl(), uncond_seq=uncond, added_cond=added_src,
+                            collect_records=True, collect_trajectory=True)
+    unet = common.grad_unet(pipe, 16, force=xl)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, losses = p2z._guided_scan(unet, pipe.scheduler, latent, ctx, None if xl else refs, 7.5, 0.1, added, uncond,
+                                     traj if xl else None, ctx_src if xl else None, added_src if xl else None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not (torch.isfinite(losses).all() and (losses > 0).all()):
+        raise AssertionError(f"tiny {model_type} p2z losses {losses}")
+    return True
+
+
 def controls_sync_free():
     """Every MasaCtrl variant's and PnP's step at a gated site on the card,
     at a gated and an ungated step, under ``torch.cuda.set_sync_debug_mode
@@ -786,15 +888,19 @@ def phase_tiny():
         # MasaCtrl and PnP; the auto masks threshold the maps, which must
         # keep clear of it (the tiny SD net has 256-token sites; XL none)
         (cpu_edits, gap), (gpu_edits, _) = (tiny_edits(pipe, model_type) for pipe in (cpu, gpu))
+        # pix2pix-zero: its reconstruction (pass 1) and its edit (pass 2)
+        (cpu_edits["p2z_rec"], cpu_edits["p2z"]), (gpu_edits["p2z_rec"], gpu_edits["p2z"]) = (
+            tiny_p2z(pipe, model_type) for pipe in (cpu, gpu))
+        p2z_sync = p2z_sync_free(gpu, model_type)
         edit_errs = {k: (cpu_edits[k] - gpu_edits[k]).abs().max().item() for k in cpu_edits}
-        target_errs = {k: (cpu_edits[k][1] - gpu_edits[k][1]).abs().max().item() for k in cpu_edits}
+        target_errs = {k: (cpu_edits[k][-1] - gpu_edits[k][-1]).abs().max().item() for k in cpu_edits}
         margin_ok = gap > 1e-4 if model_type == "sd" else gap is None
-        if len(edit_errs) != 6 or not all(e < 1e-3 for e in edit_errs.values()) or not margin_ok:
-            raise AssertionError(f"tiny {model_type} MasaCtrl/PnP on the card disagree with the CPU: {edit_errs}, "
-                                 f"auto-mask margin {gap}")
+        if len(edit_errs) != 8 or not all(e < 1e-3 for e in edit_errs.values()) or not margin_ok:
+            raise AssertionError(f"tiny {model_type} MasaCtrl/PnP/p2z on the card disagree with the CPU: "
+                                 f"{edit_errs}, auto-mask margin {gap}")
         fields = dict(max_abs_err=errs[0], nti_edit_max_abs_err=errs[1], nti_embedding_max_abs_err=errs[2], tol=1e-3,
                       masactrl_pnp_max_abs_err=edit_errs, masactrl_pnp_target_max_abs_err=target_errs,
-                      auto_mask_margin=gap)
+                      auto_mask_margin=gap, p2z_max_abs_err=edit_errs["p2z"], p2z_sync_free=p2z_sync)
         if model_type == "xl":
             fields.update(nti_embedding_remat_max_abs_err=errs[3],
                           remat_bitwise_on_card=bool(torch.equal(results[1][2], results[1][3])))
@@ -1097,6 +1203,148 @@ def phase_pnp_path(model, pipe, inversion):
     return counts[0]
 
 
+# the guided step phase_p2z_path times alone
+P2Z_PROBE_STEP = 25
+
+
+def phase_p2z_path(model, pipe, nti):
+    """pix2pix-zero through the user entry points, bf16, 50 steps, 2
+    prompts: ``cli.invert(..., "ddim", "p2z")`` and ``cli.run_method("p2z",
+    ...)`` with the default configuration (SD1.5: the references recorded
+    in pass 1; SDXL: recomputed from pass 1's trajectory, the checkpointed
+    UNet by the auto rule at latent side 128); then the edit alone on
+    ``phase_nti_path``'s inversion and embeddings (their swap in both
+    passes). Per run: seconds of pass 1, pass 2 and the decodes, exact
+    launch counts, the loss of the first and last guided step. Then one
+    guided step (step ``P2Z_PROBE_STEP`` from the inverted latent, SDXL's
+    recomputed references included) timed alone and under torch.profiler,
+    beside its gradient alone and a forward at CFG batch 2."""
+    import functools
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_editing_framework_torch import cli
+    from image_editing_framework_torch.core.config import P2ZConfig, SamplerConfig
+    from image_editing_framework_torch.methods import common, p2z
+    from image_editing_framework_torch.methods.base import _step_context
+
+    _, name, side, _ = MODELS[model]
+    image = (np.random.RandomState(4).rand(side, side, 3) * 255).astype(np.uint8)
+    sampler = SamplerConfig(num_inference_steps=STEPS, height=side, width=side)
+    sites, xl = SITES[model], model == "xl"
+    checkpointed = isinstance(common.grad_unet(pipe, side // 8), functools.partial)
+    # pass 2 per step: the gradient's forward and the noise forward; with
+    # recomputed references their forward, with the checkpointed UNet the
+    # blocks' forward again in the backward pass
+    per_step = sites * (2 + int(xl) + int(checkpointed))
+    marks = {}
+    denoise, guided, decode = p2z.denoise, p2z._guided_scan, pipe.latent2image
+
+    def measured(key, fn, keep=lambda out: out):
+        """``fn`` with its seconds (summed over calls), its launches and
+        ``keep(output)`` kept under ``key``."""
+        def call(*args, **kw):
+            before = launch_counts()
+            out, seconds = timed(lambda: fn(*args, **kw))
+            marks[key + "_s"] = marks.get(key + "_s", 0.0) + seconds
+            marks[key + "_launches"] = tuple(a - b for a, b in zip(launch_counts(), before))
+            marks[key] = keep(out)
+            return out
+        return call
+
+    runs = {}
+    # pass 1's final latent only: its recorded references go before the decodes
+    p2z.denoise, p2z._guided_scan = measured("pass1", denoise, keep=lambda out: out[0]), measured("pass2", guided)
+    pipe.latent2image = measured("decode", decode, keep=lambda out: None)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        (last, _, _), invert_s = timed(lambda: cli.invert(pipe, image, PROMPTS[0], "ddim", "p2z"))
+        inv_counts = launch_counts()
+        for label, start, uncond in (("ddim", last, None), ("nti", nti[0], nti[1])):
+            marks.clear()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            images, edit_s = timed(lambda: cli.run_method("p2z", pipe, PROMPTS, start, sampler, uncond_seq=uncond))
+            runs[label] = dict(marks, edit_s=edit_s, launches=launch_counts(), images=images,
+                               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    finally:
+        p2z.denoise, p2z._guided_scan = denoise, guided
+        del pipe.latent2image
+
+    if inv_counts != (sites * STEPS, 0, 0):
+        raise AssertionError(f"the p2z inversion on {model} launched (forward, dQ, dK/dV) {inv_counts} times")
+    expected = (sites * STEPS + per_step * STEPS, sites * STEPS, sites * STEPS)
+    lines = {}
+    for label, run in runs.items():
+        (final, losses), final_src = run["pass2"], run["pass1"]
+        if run["launches"] != expected or run["pass2_launches"] != (per_step * STEPS,) + expected[1:]:
+            raise AssertionError(f"p2z {label} on {model} launched (forward, dQ, dK/dV) {run['launches']} times "
+                                 f"(pass 2: {run['pass2_launches']}), expected {expected}")
+        moved = (final.float() - final_src.float()).abs().max().item()
+        if not (torch.isfinite(losses).all() and losses.shape == (STEPS,) and math.isfinite(moved) and moved > 0):
+            raise AssertionError(f"p2z {label} on {model}: losses {losses}, edit moved {moved} from pass 1")
+        if any(x.shape != (side, side, 3) or x.dtype != np.uint8 or x.std() == 0 for x in run["images"]):
+            raise AssertionError(f"p2z {label} output constant or misshapen")
+        lines[label] = dict(
+            pass1_s=run["pass1_s"], pass2_s=run["pass2_s"], decode_s=run["decode_s"], edit_and_decode_s=run["edit_s"],
+            guided_step_s=run["pass2_s"] / STEPS, launches=run["launches"], pass2_launches=run["pass2_launches"],
+            loss_first=losses[0].item(), loss_last=losses[-1].item(), edit_moved_from_source=moved,
+            image_means=[float(x.mean()) for x in run["images"]], peak_gib=run["peak_gib"])
+    lines["ddim"].update(invert_s=invert_s, image_s=invert_s + runs["ddim"]["edit_s"],
+                         image_launches=tuple(a + b for a, b in zip(inv_counts, runs["ddim"]["launches"])),
+                         inversion_launches=inv_counts)
+    tag = "p2z_path" if model == "sd" else "xl_p2z_path"
+    for label, line in lines.items():
+        emit(tag, run=label, model=f"{name} (random weights, seed 0)", resolution=side, dtype="bfloat16", steps=STEPS,
+             recompute_refs=xl, checkpointed_unet=checkpointed, inversion="DDIM" if label == "ddim" else
+             "phase_nti_path's NTI (edit only)", **line, card=card_line())
+
+    # one guided step alone, built as p2z_edit builds it, from the inverted
+    # latent: wall ms, device busy ms, idle share; its gradient alone; a
+    # forward at CFG batch 2. SD1.5's references are made once (pass 1
+    # records them), SDXL's inside the step (recomputed).
+    unet, sched, i, lat = common.grad_unet(pipe, side // 8), pipe.scheduler, P2Z_PROBE_STEP, last
+    ctx_src, added_src = common.prepare_conditioning(pipe, PROMPTS[:1], side, side)
+    ctx, added = common.prepare_conditioning(pipe, PROMPTS[1:], side, side)
+    ctx = _step_context(ctx, None, i)
+    src_traj = lat.unsqueeze(0).expand(STEPS, *lat.shape)
+    recorded = None if xl else p2z.source_records(unet, sched, i, src_traj, ctx_src, None, added_src)
+
+    def references():
+        return recorded or p2z.source_records(unet, sched, i, src_traj, ctx_src, None, added_src)
+
+    t = int(sched.timesteps[i])
+    step = lambda: p2z.guided_step(unet, sched, i, lat, ctx, references(), sampler.guidance_scale,  # noqa: E731
+                                   P2ZConfig().guidance_amount, added)
+    ref = references()
+    x_in = torch.cat([lat, lat])
+    gradient = lambda: p2z.guidance_gradient(unet, x_in, t, ctx, ref, added)  # noqa: E731
+    forward = lambda: pipe.unet_apply(x_in, t, ctx, None, added)  # noqa: E731
+    with torch.no_grad():
+        step_ms, gradient_ms, forward_ms = (cuda_ms(fn, min_ms=500.0, warmup=1) for fn in (step, gradient, forward))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_REPS):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / PROFILE_REPS / 1e3
+    if busy == 0:
+        raise AssertionError("the profiler recorded no device time")
+
+    def kernel_ms(tag):
+        return sum(e.self_device_time_total for e in kernels if tag in e.key) / PROFILE_REPS / 1e3
+
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    emit(tag + "_step", step=i, wall_ms=step_ms, device_busy_ms=busy, idle_share=1.0 - busy / step_ms,
+         launches=sum(e.count for e in kernels) / PROFILE_REPS, gradient_wall_ms=gradient_ms,
+         forward_cfg2_wall_ms=forward_ms, backward_share_est=(gradient_ms - forward_ms) / step_ms,
+         flash_fwd_ms=kernel_ms("flash_fwd"), flash_bwd_dq_ms=kernel_ms("bwd_dq"), flash_bwd_dkv_ms=kernel_ms("bwd_dkv"),
+         flash_bwd_share_of_busy=(kernel_ms("bwd_dq") + kernel_ms("bwd_dkv")) / busy,
+         top=[[e.key[:60], e.self_device_time_total / PROFILE_REPS / 1e3] for e in top], card=card_line())
+    return {label: run["launches"] for label, run in runs.items()}, inv_counts
+
+
 def phase_refiner():
     """img2img through the SDXL refiner at full width, 1024², bf16: strength
     0.3 of a 50-step schedule (15 UNet forwards at CFG batch 2), noise from
@@ -1144,10 +1392,10 @@ def main() -> int:
 
     instances = run("device", phase_device)
     worst, sums, bias_sums, enqueue = run("kernels", phase_kernels, gen)
-    bwd_worst, bwd_sums = run("bwd_kernels", phase_bwd_kernels, gen)
+    bwd_worst, bwd_sums, p2z_bwd_sums = run("bwd_kernels", phase_bwd_kernels, gen)
     probe = run("probe", phase_probe)
     run("tiny", phase_tiny)
-    launches, unet_ms, bwd_launches, masa_runs = {}, {}, {}, {}
+    launches, unet_ms, bwd_launches, masa_runs, p2z_runs = {}, {}, {}, {}, {}
     for model, prefix in (("sd", ""), ("xl", "xl_")):
         launches[model], unet_ms[model], profile_args = run(prefix + "main_path", phase_main_path, model)
         nti_counts, nti = run(prefix + "nti_path", phase_nti_path, model, profile_args[0])
@@ -1156,6 +1404,8 @@ def main() -> int:
         launches[prefix + "masactrl"], masa_runs[model], inversion = run(
             prefix + "masactrl_path", phase_masactrl_path, model, profile_args[0], nti)
         launches[prefix + "pnp"] = run(prefix + "pnp_path", phase_pnp_path, model, profile_args[0], inversion)
+        p2z_runs[model], p2z_inversion = run(prefix + "p2z_path", phase_p2z_path, model, profile_args[0], nti)
+        launches[prefix + "p2z"] = p2z_inversion[0] + sum(counts[0] for counts in p2z_runs[model].values())
         del profile_args, nti, inversion  # the next model needs the card's memory
         torch.cuda.empty_cache()
     launches["refiner"] = run("refiner", phase_refiner)
@@ -1169,7 +1419,11 @@ def main() -> int:
              sdpa_bwd_ms_per_inner_iteration=bwd["library_ms"], bwd_device_ms_per_inner_iteration=bwd["device_ms"],
              sdpa_bwd_device_ms_per_inner_iteration=bwd["library_device_ms"],
              masactrl_union_flash_ms_per_cfg4_forward=bias_sums[model]["union"]["forward_ms"],
-             masactrl_mask_flash_ms_per_cfg4_forward=bias_sums[model]["mask"]["forward_ms"])
+             masactrl_mask_flash_ms_per_cfg4_forward=bias_sums[model]["mask"]["forward_ms"],
+             bwd_ms_per_p2z_guided_step=p2z_bwd_sums[model]["all"]["ms"],
+             bwd_device_ms_per_p2z_guided_step=p2z_bwd_sums[model]["all"]["device_ms"],
+             bwd_bound_ms_per_p2z_guided_step=p2z_bwd_sums[model]["all"]["bound_ms"],
+             sdpa_bwd_device_ms_per_p2z_guided_step=p2z_bwd_sums[model]["all"]["library_device_ms"])
 
     def at(part, *more):
         return {key: part[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms") + more}
@@ -1180,15 +1434,23 @@ def main() -> int:
     work = {"sd": "the 15 self-attention sites an SD1.5 512² NTI gradient flows through, batch 1, bf16 (one inner "
                   "iteration)",
             "xl": "the 69 sites an SDXL 1024² NTI gradient flows through, batch 1, bf16 (one inner iteration)"}
+    p2z_work = {"sd": "all 16 self-attention sites of SD1.5 512², CFG batch 2, bf16 (one p2z guided step)",
+                "xl": "all 70 sites of SDXL 1024², CFG batch 2, bf16 (one p2z guided step)"}
     bwd = [{
         "name": f"flash_bwd_{kernel}", "route": "cuda", "source": "image_editing_framework_torch/csrc/flash_bwd.cu",
         "replaces": f"{tpu}:{line}", "also_replaces": f"{tpu}:{line_t}",
-        "launches": sum(counts[i] for counts in bwd_launches.values()),
+        "launches": sum(counts[i] for counts in bwd_launches.values())
+        + sum(counts[i + 1] for runs in p2z_runs.values() for counts in runs.values()),
         "launches_by_path": {"nti_path": bwd_launches["sd"][i], "xl_nti_path": bwd_launches["xl"][i],
-                             "masactrl_path": 0, "xl_masactrl_path": 0, "pnp_path": 0, "xl_pnp_path": 0},
+                             "masactrl_path": 0, "xl_masactrl_path": 0, "pnp_path": 0, "xl_pnp_path": 0,
+                             "p2z_path": sum(counts[i + 1] for counts in p2z_runs["sd"].values()),
+                             "xl_p2z_path": sum(counts[i + 1] for counts in p2z_runs["xl"].values())},
         "max_abs_err": bwd_worst[torch.bfloat16][kernel], "max_abs_err_f32": bwd_worst[torch.float32][kernel],
         **at(bwd_sums["sd"][kernel], *device), "work": work["sd"],
         "at_xl": dict(at(bwd_sums["xl"][kernel], *device), work=work["xl"]),
+        "at_p2z": {model: dict(at(p2z_bwd_sums[model][kernel], *device), work=p2z_work[model],
+                               whole_backward=at(p2z_bwd_sums[model]["all"], *device))
+                   for model in MODELS},
         "plain_and_library": "the whole backward (dq, dk, dv): the plain version and SDPA's backward",
         "design": design,
         "bf16_instances": [{key: r.get(key) for key in ("dp", "bias", "registers", "smem_bytes", "spill_stores",
@@ -1215,7 +1477,9 @@ def main() -> int:
         "launches_by_path": {"main_path": launches["sd"], "xl_main_path": launches["xl"],
                              "masactrl_path": launches["masactrl"], "xl_masactrl_path": launches["xl_masactrl"],
                              "pnp_path": launches["pnp"], "xl_pnp_path": launches["xl_pnp"],
+                             "p2z_path": launches["p2z"], "xl_p2z_path": launches["xl_p2z"],
                              "refiner": launches["refiner"]},
+        "p2z_launches_by_run": p2z_runs,
         "masactrl_launches_by_run": masa_runs,
         "max_abs_err": worst[torch.bfloat16], "max_abs_err_f32": worst[torch.float32],
         **at(sums["sd"]), "work": "the 16 self-attention sites of one SD1.5 512² UNet forward at CFG batch 4, bf16",

@@ -4,9 +4,10 @@ The counterpart of ``image_editing_framework_tpu``: training-free,
 text-driven image editing on Stable Diffusion (SD1.x, SDXL) with the
 framework's attention controls, written in PyTorch, with every TPU kernel
 of the JAX package rewritten by hand for the H100 (``csrc/*.cu``, built
-with ``nvcc`` at first use). Ported so far: Prompt-to-Prompt, MasaCtrl and
-Plug-and-Play, DDIM and null-text inversion, the SD1.5 and SDXL pipelines
-(with seeded random weights, or weights loaded under diffusers keys).
+with ``nvcc`` at first use). Ported so far: Prompt-to-Prompt, MasaCtrl,
+Plug-and-Play and pix2pix-zero, DDIM and null-text inversion, the SD1.5 and
+SDXL pipelines (with seeded random weights, or weights loaded under
+diffusers keys).
 
 Importing the package imports nothing heavy: the top-level API below is
 resolved on first access, as the JAX package's is.
@@ -23,6 +24,7 @@ _API = {
     "p2p_edit": ("image_editing_framework_torch.methods.p2p", "p2p_edit"),
     "masactrl_edit": ("image_editing_framework_torch.methods.masactrl", "masactrl_edit"),
     "pnp_edit": ("image_editing_framework_torch.methods.pnp", "pnp_edit"),
+    "p2z_edit": ("image_editing_framework_torch.methods.p2z", "p2z_edit"),
 }
 
 

@@ -3,10 +3,10 @@
 Counterpart of ``image_editing_framework_tpu/cli.py``: ``invert`` is the
 normal entry that picks the inversion (DDIM, null-text or direct) for a real
 image, with the reference's learning-rate schedules (``nti_config_for``);
-``run_method`` dispatches one edit to P2P, MasaCtrl or PnP, with the
-MasaCtrl command-line options merged by ``_masactrl_cli_kwargs``. The
-argument parsing and the per-method ``*_main`` entry points arrive with the
-CLI slice, pix2pix-zero with its own.
+``run_method`` dispatches one edit to P2P, MasaCtrl, PnP or pix2pix-zero,
+with the MasaCtrl command-line options merged by ``_masactrl_cli_kwargs``.
+The argument parsing and the per-method ``*_main`` entry points arrive with
+the CLI slice.
 """
 
 from __future__ import annotations
@@ -17,11 +17,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from image_editing_framework_torch.core.config import NTIConfig, P2PConfig, PnPConfig, SamplerConfig
+from image_editing_framework_torch.core.config import NTIConfig, P2PConfig, P2ZConfig, PnPConfig, SamplerConfig
 from image_editing_framework_torch.inversion.ddim import ddim_invert
 from image_editing_framework_torch.inversion.nti import null_text_inversion
 from image_editing_framework_torch.methods.masactrl import default_masactrl_config, masactrl_edit
 from image_editing_framework_torch.methods.p2p import p2p_edit
+from image_editing_framework_torch.methods.p2z import p2z_edit
 from image_editing_framework_torch.methods.pnp import pnp_edit
 
 GUIDANCE_SCALE = 7.5
@@ -92,8 +93,10 @@ def run_method(
 
     ``source_replay`` (the inversion trajectory) enables direct inversion:
     the source branch replays its recorded latents each step, pinning the
-    reconstruction to the input while the target branch edits freely.
-    ``method_kwargs`` go to the editor (``config`` its configuration).
+    reconstruction to the input while the target branch edits freely;
+    pix2pix-zero ignores it. ``method_kwargs`` go to the editor (``config``
+    its configuration; pix2pix-zero's default recomputes the reference maps
+    on XL pipelines, where keeping them would take ~25 GB at 1024²).
     """
     kw = dict(method_kwargs or {})
     if source_replay is not None and method != "p2z":
@@ -108,7 +111,9 @@ def run_method(
         cfg = kw.pop("config", PnPConfig())
         imgs = pnp_edit(pipe, prompts, latent, cfg, sampler, uncond_seq=uncond_seq, **kw)
     elif method == "p2z":
-        raise NotImplementedError("pix2pix-zero is not ported yet (ROADMAP A3)")
+        cfg = kw.pop("config", P2ZConfig(recompute_refs=pipe.model_type == "xl"))
+        rec, edit = p2z_edit(pipe, prompts, latent, cfg, sampler, uncond_seq=uncond_seq, **kw)
+        return rec[0], edit[0]
     else:
         raise ValueError(f"unknown method {method}")
     return imgs[0], imgs[1]

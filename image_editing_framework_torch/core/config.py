@@ -3,8 +3,8 @@
 Counterpart of ``image_editing_framework_tpu/core/config.py``: the sampler,
 Prompt-to-Prompt, MasaCtrl, Plug-and-Play and null-text inversion
 configurations, with the reference's defaults (p2p/edit_real.py:42-55,
-masactrl/edit_real.py:48-49, pnp/edit_real.py:45-46). pix2pix-zero's
-arrives with its slice.
+masactrl/edit_real.py:48-49, pnp/edit_real.py:45-46), and pix2pix-zero's
+(pix2pix-zero/model/sd_utils.py:28).
 """
 
 from __future__ import annotations
@@ -73,6 +73,25 @@ class PnPConfig:
 
     pnp_attn_t: float = 0.5
     pnp_f_t: float = 0.8
+
+
+@dataclasses.dataclass(frozen=True)
+class P2ZConfig:
+    """pix2pix-zero (reference: pix2pix-zero/model/sd_utils.py:28).
+
+    ``recompute_refs``: rematerialise pass 1's reference cross-attention
+    maps inside pass 2 from the stored latent trajectory (one extra source
+    forward per step) instead of keeping all steps x sites maps resident
+    (~25 GB in bf16 at SDXL 1024²). On by default for XL pipelines in
+    ``cli.run_method``.
+    """
+
+    guidance_amount: float = 0.1
+    recompute_refs: bool = False
+    # Differentiate through the checkpointed UNet (identical gradients,
+    # the blocks' activations recomputed). None = auto (methods/common.py
+    # grad_unet: on for XL at latent side >= 128).
+    remat_grad: Optional[bool] = None
 
 
 @dataclasses.dataclass(frozen=True)

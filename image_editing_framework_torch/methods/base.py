@@ -5,13 +5,15 @@ all P prompt branches advance together; classifier-free guidance doubles the
 batch inside the step ([uncond x P, cond x P]); the editing control is sliced
 per step with ``ctrl.at_step(i)``; LocalBlend sums the recorded 16x16
 cross-attention maps across steps and blends after every scheduler step
-(p2p/model/sd_utils.py:78 ``controller.step_callback``).
+(p2p/model/sd_utils.py:78 ``controller.step_callback``); on request the loop
+also returns every step's records and UNet input latents (pix2pix-zero's
+pass 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -76,10 +78,15 @@ def _denoise_scan(
     uncond_seq: Optional[torch.Tensor] = None,  # (S, 77, D) NTI embeddings
     source_replay: Optional[torch.Tensor] = None,  # (S+1, 1, h, w, 4) inversion trajectory
     added_cond: Optional[Dict[str, torch.Tensor]] = None,  # dict of (2P, ...), SDXL
-) -> torch.Tensor:
+    collect_records: bool = False,
+    collect_trajectory: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], Optional[torch.Tensor]]:
     lat = latents
     steps = sched.num_steps
     store: Dict[str, torch.Tensor] = {}
+    # per-step outputs, written into buffers made at step 0 (no stacking copy)
+    rec_ys: Optional[Dict[str, torch.Tensor]] = None
+    traj_ys: Optional[torch.Tensor] = None
     for i in range(steps):
         step_ctrl = ctrl.at_step(i)
         if store_mode is not None:
@@ -88,15 +95,27 @@ def _denoise_scan(
             # direct inversion: the source branch replays its inversion
             # trajectory (masactrl/model/sd_utils.py:95-99)
             lat = torch.cat([source_replay[steps - i].to(lat.dtype), lat[1:]], dim=0)
+        if collect_trajectory:
+            # the UNet input latent of step i, after any replay (JAX
+            # ``lat_entry``): a later pass rematerialises this step's records
+            # from it (pix2pix-zero's recompute_refs)
+            if traj_ys is None:
+                traj_ys = lat.new_empty((steps,) + tuple(lat.shape))
+            traj_ys[i] = lat
         ctx = _step_context(context, uncond_seq, i)
         eps, rec = unet(torch.cat([lat, lat]), int(sched.timesteps[i]), ctx, step_ctrl, added_cond)
+        if collect_records:
+            if rec_ys is None:
+                rec_ys = {k: v.new_empty((steps,) + tuple(v.shape)) for k, v in rec.items()}
+            for k, v in rec.items():
+                rec_ys[k][i] = v
         eps_u, eps_c = eps.chunk(2)
         lat = ddim_step(sched, eps_u + guidance_scale * (eps_c - eps_u), i, lat)
         if store_mode == "sum":
             store = {k: store[k] + rec[k].float() if k in store else rec[k].float() for k in rec}
         if blend is not None:
             lat = blend(lat, store)
-    return lat
+    return lat, rec_ys, traj_ys
 
 
 def denoise(
@@ -109,15 +128,26 @@ def denoise(
     uncond_seq: Optional[torch.Tensor] = None,
     source_replay: Optional[torch.Tensor] = None,
     added_cond: Optional[Dict[str, torch.Tensor]] = None,
-) -> torch.Tensor:
+    collect_records: bool = False,
+    collect_trajectory: bool = False,
+):
     """Run the full DDIM denoising loop; returns the final (P, h, w, 4) latents.
 
     ``uncond_seq`` (S, 77, D): per-step unconditional embeddings from
     null-text inversion. ``source_replay`` (S+1, 1, h, w, 4): the inversion
     trajectory, which the source branch replays at every step (direct
-    inversion). ``added_cond``: SDXL's (2P, ...) added conditions."""
+    inversion). ``added_cond``: SDXL's (2P, ...) added conditions.
+
+    With either flag it returns (latents, records, trajectory), each None
+    unless its flag asks for it: ``collect_records``, per site the control's
+    records of every step stacked, e.g. (S, 2P, H, N, 77) for
+    pix2pix-zero's pass 1; ``collect_trajectory``, the (S, P, h, w, 4) UNet
+    input latents of each step, taken after any replay (the JAX
+    ``denoise``'s ``traj``)."""
     if ctrl is None:
         ctrl = NoneControl()
     store_mode = "sum" if blend is not None else None
-    return _denoise_scan(pipe.unet, pipe.scheduler, latents, context, ctrl, guidance_scale, blend, store_mode,
-                         uncond_seq, source_replay, added_cond)
+    lat, rec_ys, traj_ys = _denoise_scan(pipe.unet, pipe.scheduler, latents, context, ctrl, guidance_scale, blend,
+                                         store_mode, uncond_seq, source_replay, added_cond, collect_records,
+                                         collect_trajectory)
+    return (lat, rec_ys, traj_ys) if collect_records or collect_trajectory else lat

@@ -12,11 +12,14 @@ def grad_unet(pipe, latent_side: int, force: Optional[bool] = None) -> Callable:
     """The UNet callable to differentiate through at this scale (JAX
     ``methods/common.py:10 grad_unet``).
 
-    Gradient programs (NTI's inner Adam loop) backpropagate through the whole
-    UNet. At XL 1024² (latent side 128) they take the UNet with every
-    BasicTransformerBlock checkpointed: identical outputs and gradients, the
-    blocks' activations recomputed in the backward pass instead of kept.
-    Smaller programs keep the plain module. ``force`` overrides the rule.
+    Gradient programs (pix2pix-zero's guided step, NTI's inner Adam loop)
+    backpropagate through the whole UNet. At XL 1024² (latent side 128) they
+    take the UNet with every BasicTransformerBlock checkpointed: identical
+    outputs and gradients, the blocks' activations recomputed in the
+    backward pass instead of kept. Smaller programs keep the plain module.
+    ``force`` overrides the rule.
+    ``latent_side`` is what the JAX callers pass: pix2pix-zero passes
+    ``latent.shape[1]`` of its NHWC latent, NTI the trajectory's height.
     """
     remat = force if force is not None else pipe.model_type == "xl" and latent_side >= 128
     return functools.partial(pipe.unet, remat=True) if remat else pipe.unet

@@ -352,7 +352,11 @@ class UNet2DCondition(nn.Module):
             ctrl = NoneStep()
         dtype = self.conv_in.weight.dtype
         b = sample.shape[0]
-        t = torch.as_tensor(timestep, device=sample.device).expand(b)
+        if isinstance(timestep, torch.Tensor):
+            t = timestep.to(sample.device).expand(b)
+        else:
+            # a fill on the device: no host-to-device copy that the host waits for
+            t = torch.full((b,), timestep, device=sample.device)
         temb = self.time_embedding(sinusoidal_timestep_embedding(t, cfg.block_out_channels[0], dtype=dtype))
         if cfg.addition_time_embed_dim is not None:
             if added_cond is None:

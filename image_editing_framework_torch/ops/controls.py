@@ -1,6 +1,7 @@
-"""Editing controllers as precomputed schedules (P2P, MasaCtrl, PnP).
+"""Editing controllers as precomputed schedules (P2P, MasaCtrl, PnP), and
+the recording controls (the attention store, pix2pix-zero's maps).
 
-Counterpart of ``image_editing_framework_tpu/ops/controls.py:48-576``. Every
+Counterpart of ``image_editing_framework_tpu/ops/controls.py``. Every
 controller decision — a function of (step, layer, is_cross, resolution) plus
 small precomputed tensors — is data:
 
@@ -26,7 +27,7 @@ half" means batch indices > P.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -484,3 +485,70 @@ def build_pnp_control(
     return PnPControl(qk_gate=torch.as_tensor(qk, device=device), conv_gate=torch.as_tensor(conv, device=device),
                       inject=torch.tensor(_PNP_INJECT_IDX, device=device), attn_layers=tuple(attn_layers),
                       conv_keys=tuple(conv_keys))
+
+
+# ---------------------------------------------------------------------------
+# Attention store (visualization / analysis)
+
+
+@dataclasses.dataclass
+class AttentionStoreStep(NoneStep):
+    """Records attention maps for visualization: the reference's
+    AttentionStore (p2p/model/attention_base.py:57-92 stores maps of at
+    most 32² tokens per step, then averages across steps). Use with
+    ``denoise(..., collect_records=True)`` and average the stacked records
+    with ``average_attention``. Maps are averaged over heads to bound
+    memory."""
+
+    max_seq: int = 1024
+    include_self: bool = True
+
+    def record_key(self, site: AttnSite) -> Optional[str]:
+        if site.seq_len > self.max_seq:
+            return None
+        if not site.is_cross and not self.include_self:
+            return None
+        return site.key
+
+    def record(self, site: AttnSite, probs: torch.Tensor) -> torch.Tensor:
+        return probs.mean(dim=1)  # (B, N, K), mean over heads
+
+
+@dataclasses.dataclass
+class AttentionStoreControl(AttentionStoreStep):
+    def at_step(self, i: int) -> AttentionStoreStep:
+        del i
+        return AttentionStoreStep(max_seq=self.max_seq, include_self=self.include_self)
+
+
+def average_attention(ys: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Per-site step-averaged maps (reference get_average_attention,
+    p2p/model/attention_base.py:84-86). ys: {site: (S, B, N, K)}."""
+    return {k: v.mean(dim=0) for k, v in ys.items()}
+
+
+# ---------------------------------------------------------------------------
+# pix2pix-zero
+
+
+@dataclasses.dataclass
+class P2ZStep(NoneStep):
+    """Records every cross-attention probability map, cast to
+    ``store_dtype``: pass 1 of pix2pix-zero stores them as references, pass
+    2 differentiates their L2 distance to them
+    (pix2pix-zero/model/sd_utils.py:104-110,166-172)."""
+
+    store_dtype: torch.dtype = torch.bfloat16
+
+    def record_key(self, site: AttnSite) -> Optional[str]:
+        return site.key if site.is_cross else None
+
+    def record(self, site: AttnSite, probs: torch.Tensor) -> torch.Tensor:
+        return probs.to(self.store_dtype)
+
+
+@dataclasses.dataclass
+class P2ZControl(P2ZStep):
+    def at_step(self, i: int) -> P2ZStep:
+        del i
+        return P2ZStep(store_dtype=self.store_dtype)

@@ -54,16 +54,17 @@ def test_chip_smoke_builds_every_kernel_source():
 
 def test_chip_smoke_wires_every_phase_into_main():
     """main() runs the earlier phases and the later slices': the probe, both
-    models' main, NTI, profile, MasaCtrl and PnP phases, and the refiner;
-    the kernels line names all four kernels and the forward's biased
-    figures; the XL shapes are SDXL's 70 sites at head dim 64."""
+    models' main, NTI, profile, MasaCtrl, PnP and pix2pix-zero phases, and
+    the refiner; the kernels line names all four kernels, the forward's
+    biased figures and the backward's at p2z's batch; the XL shapes are
+    SDXL's 70 sites at head dim 64."""
     import inspect
 
     smoke = _load_script()
     source = inspect.getsource(smoke.main)
     for phase in ("phase_device", "phase_kernels", "phase_bwd_kernels", "phase_probe", "phase_tiny",
                   "phase_main_path", "phase_nti_path", "phase_profile", "phase_masactrl_path", "phase_pnp_path",
-                  "phase_refiner"):
+                  "phase_p2z_path", "phase_refiner"):
         assert callable(getattr(smoke, phase)) and phase in source, phase
     assert '("sd", ""), ("xl", "xl_")' in source  # both models go through main, NTI and profile
     for kernel in ("flash_fwd", "flash_bwd_", "mma_probe"):
@@ -73,6 +74,7 @@ def test_chip_smoke_wires_every_phase_into_main():
     assert smoke.PATH_SHAPES["sd"][0] == (4096, 40, 8, 5)  # the SD1.5 shapes stay
     assert "xl_tiny" in inspect.getsource(smoke.phase_tiny) and "tiny_edits" in inspect.getsource(smoke.phase_tiny)
     assert '"at_bias"' in source and '"masactrl_path": launches["masactrl"]' in source
+    assert '"at_p2z"' in source and '"p2z_path": launches["p2z"]' in source and '"xl_p2z_path"' in source
     # the biased shapes: union doubles the gated sites' keys, mask keeps them
     assert sum(calls for v, *_, calls in smoke.BIAS_SHAPES["sd"] if v == "union") == 6
     assert sum(calls for v, *_, calls in smoke.BIAS_SHAPES["xl"] if v == "union") == 16
@@ -169,3 +171,59 @@ def test_biased_operands_and_faults(variant, n, d):
     tol = fa.parity_atol(ref)
     must_fail = ["skipped_key_tile", "no_acc_rescale"] + (["bias_ignored"] if variant == "union" else [])
     assert all(faults[name] > tol for name in must_fail), (faults, tol)
+
+
+@pytest.mark.parametrize("fault", [None, "o_off_by_4_ulp", "lse_off_by_2e-3", "lse_finite_on_a_masked_row"])
+def test_hold_forward_rejects_a_wrong_o_or_lse(fault):
+    """``hold_forward``, which holds the forward's output and lse at every
+    gradient shape in ``phase_bwd_kernels``, passes the plain version's own
+    output and rejects an O moved past ``parity_atol``, an lse moved past
+    1e-3 on one row, and a finite lse on a row whose every logit is -inf."""
+    from image_editing_framework_torch.ops import flash_attention as fa
+
+    smoke = _load_script()
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(2, 2, 200, 64).astype(np.float32)).to(torch.bfloat16) for _ in range(3))
+    bias = torch.zeros(2, 200)
+    bias[1] = float("-inf")
+    ref_o, ref_lse = fa.flash_attention_reference(q, k, v, bias, return_lse=True)
+    o, lse = ref_o.clone(), ref_lse.clone()
+    if fault == "o_off_by_4_ulp":
+        o[0, 0, 7] += 4 * fa.parity_atol(ref_o)
+    elif fault == "lse_off_by_2e-3":
+        lse[0, 1, 3] += 2e-3
+    elif fault == "lse_finite_on_a_masked_row":
+        lse[1, 0, 0] = 0.0
+    if fault is None:
+        err, tol, lse_err = smoke.hold_forward(o, ref_o, lse, ref_lse)
+        assert err == 0 and lse_err == 0 and tol > 0
+    else:
+        with pytest.raises(AssertionError):
+            smoke.hold_forward(o, ref_o, lse, ref_lse)
+
+
+def test_chip_smoke_covers_p2z():
+    """pix2pix-zero on the card: the backward kernels are held to their
+    plain version at every site at CFG batch 2 (bf16 and f32) and timed
+    there; the tiny pipelines' p2z is held to the CPU and its guided steps
+    run under the sync check; the path phase reads its launches around
+    each part of the run and profiles one guided step."""
+    import inspect
+
+    smoke = _load_script()
+    assert smoke.P2Z_BATCH == 2 and smoke.SITES == {"sd": 16, "xl": 70}
+    bwd = inspect.getsource(smoke.phase_bwd_kernels)
+    assert "check(dtype, P2Z_BATCH, h, n, n, d" in bwd and "into=p2z_sums" in bwd
+    assert "for model, shapes in PATH_SHAPES.items()" in bwd  # every site, the first included
+    # the forward's lse instantiation held at every gradient shape, and the
+    # plain backward fed the plain forward's o and lse
+    assert "hold_forward(o, ref_o, lse, ref_lse)" in bwd
+    assert "flash_attention_bwd_reference(q, k, v, bias, ref_o, do, ref_lse)" in bwd
+    tiny = inspect.getsource(smoke.phase_tiny)
+    assert "tiny_p2z(" in tiny and "p2z_sync_free(gpu" in tiny and "len(edit_errs) != 8" in tiny
+    assert 'set_sync_debug_mode("error")' in inspect.getsource(smoke.p2z_sync_free)
+    path = inspect.getsource(smoke.phase_p2z_path)
+    assert '"ddim", "p2z"' in path and 'cli.run_method("p2z"' in path and "uncond_seq=uncond" in path
+    assert "per_step = sites * (2 + int(xl) + int(checkpointed))" in path
+    assert "expected = (sites * STEPS + per_step * STEPS, sites * STEPS, sites * STEPS)" in path
+    assert 0 <= smoke.P2Z_PROBE_STEP < smoke.STEPS

@@ -147,6 +147,10 @@ BWD_CASES = [
     # SD1.5's NTI sites: d = 40, 80 and 160
     (1, 8, 4096, 4096, 40, False, True), (1, 8, 1024, 1024, 80, False, True),
     (1, 8, 256, 256, 160, False, True), (1, 8, 64, 64, 160, False, True),
+    # pix2pix-zero's sites: every site of SD1.5 and SDXL at CFG batch 2
+    (2, 8, 4096, 4096, 40, False, True), (2, 8, 1024, 1024, 80, False, True),
+    (2, 8, 256, 256, 160, False, True), (2, 8, 64, 64, 160, False, True),
+    (2, 10, 4096, 4096, 64, False, True), (2, 20, 1024, 1024, 64, False, True),
 ]
 
 

@@ -18,7 +18,7 @@ from image_editing_framework_torch.ops import _cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "image_editing_framework_torch")
-API = ("SDPipeline", "ddim_invert", "null_text_inversion", "p2p_edit", "masactrl_edit", "pnp_edit",
+API = ("SDPipeline", "ddim_invert", "null_text_inversion", "p2p_edit", "masactrl_edit", "pnp_edit", "p2z_edit",
        "random_pipeline", "tiny_pipeline")
 
 
@@ -58,7 +58,7 @@ def test_lazy_api_resolves_without_jax():
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'image_editing_framework_tpu'))\n"
         "assert not bad, bad\n"
-        "for name in ('load_pipeline', 'p2z_edit', 'run_sweep'):\n"
+        "for name in ('load_pipeline', 'run_sweep'):\n"
         "    try:\n"
         "        getattr(port, name)\n"
         "    except AttributeError:\n"
@@ -71,13 +71,16 @@ def test_lazy_api_resolves_without_jax():
 
 
 def test_api_names_are_the_modules_functions():
+    from image_editing_framework_torch.methods import p2z
     from image_editing_framework_torch.methods.masactrl import masactrl_edit
     from image_editing_framework_torch.methods.pnp import pnp_edit
 
     assert port.masactrl_edit is masactrl_edit and port.pnp_edit is pnp_edit
+    assert port.p2z_edit is p2z.p2z_edit
     assert set(API) <= set(dir(port))
-    with pytest.raises(AttributeError):
-        port.p2z_edit
+    for name in ("load_pipeline", "run_sweep"):
+        with pytest.raises(AttributeError):
+            getattr(port, name)
 
 
 def test_build_dir_follows_its_variable(monkeypatch, tmp_path):

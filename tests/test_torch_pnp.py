@@ -108,8 +108,9 @@ def test_pnp_edit_matches_jax(pipes, monkeypatch, kind, extra):
 
 def test_run_method_pnp_and_p2p_match_jax(pipes):
     """``cli.run_method`` for PnP (with the direct-inversion trajectory as
-    ``source_replay``) and P2P on the tiny SD pipeline; pix2pix-zero is not
-    ported yet and says so; an unknown method is refused."""
+    ``source_replay``), P2P and pix2pix-zero (which ignores the trajectory;
+    the JAX side on its XLA attention) on the tiny SD pipeline; an unknown
+    method is refused."""
     jpipe, tpipe = pipes["sd"]
     rng = np.random.RandomState(5)
     latent = rng.randn(1, 16, 16, 4).astype(np.float32)
@@ -122,7 +123,11 @@ def test_run_method_pnp_and_p2p_match_jax(pipes):
         for a, b in zip(tout, jout):
             assert a.shape == (32, 32, 3) and a.dtype == np.uint8
             assert np.abs(a.astype(int) - np.asarray(b).astype(int)).max() <= 1, method
-    with pytest.raises(NotImplementedError, match="A3"):
-        tcli.run_method("p2z", tpipe, PROMPTS, t(latent), TSampler(height=32, width=32))
+    jout = jcli.run_method("p2z", jpipe, PROMPTS, jnp.asarray(latent), JSampler(height=32, width=32),
+                           method_kwargs={"use_flash": False}, source_replay=jnp.asarray(replay))
+    tout = tcli.run_method("p2z", tpipe, PROMPTS, t(latent), TSampler(height=32, width=32), source_replay=t(replay))
+    for a, b in zip(tout, jout):
+        assert a.shape == (32, 32, 3) and a.dtype == np.uint8
+        assert np.abs(a.astype(int) - np.asarray(b).astype(int)).max() <= 1, "p2z"
     with pytest.raises(ValueError):
         tcli.run_method("sdedit", tpipe, PROMPTS, t(latent), TSampler(height=32, width=32))

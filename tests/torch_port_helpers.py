@@ -45,6 +45,18 @@ def shared_pipelines(num_steps: int = 4, seed: int = 0, model_type: str = "sd"):
     return jpipe, tpipe
 
 
+def fix_vocab(pipes, prompts):
+    """Give the words of ``prompts`` their ids in the tiny pipelines'
+    tokenizers, in one order in every pipeline. The tiny tokenizer hands
+    out ids in the order it first sees words, so tests that encode the
+    source and the target prompt in different orders in the two frameworks
+    would otherwise give them different ids."""
+    words = " ".join(prompts)
+    for pipe in pipes:
+        for tok in {id(x): x for x in (pipe.tokenizer, pipe.tokenizer_2) if x is not None}.values():
+            tok.encode(words)
+
+
 def t(x) -> torch.Tensor:
     """numpy (or JAX) array -> CPU torch tensor."""
     return torch.from_numpy(np.array(x))
