@@ -5,9 +5,10 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, one line of output each (any failure exits non-zero):
   1. device: card name and power limit, torch/CUDA versions, kernel build
      (every CUDA source of the port, one nvcc each, all started together),
-     then one line per forward and backward instantiation with its
+     then one line per forward, backward and probe instantiation with its
      registers, shared memory and spills from the build's ``-Xptxas -v``
-     report (a bf16 instantiation that spills fails the phase);
+     report (a bf16 instantiation that spills, or a count of them other than
+     the source's, fails the phase);
   2. kernels: each kernel against its plain PyTorch version on the card at
      its paths' shapes (SD1.5's and SDXL's), as the head-split views the
      UNet passes (bf16 and f32), and at edge cases (padded Nk, Nq off the tile, NEG_INF bias
@@ -269,6 +270,25 @@ def backward_instances():
     return rows, warnings
 
 
+# the probe kernel's instantiations: the S plan's two (K-major, MN-major) and
+# the PV plan's B K-major or MN-major at each of its 5 wgmma widths
+PROBE_INSTANCES = 12
+
+
+def probe_instances(report):
+    """Each instantiation of the probe kernel in its build's ``-Xptxas -v``
+    report: plan, A / B MN-major, wgmma width, registers and spills;
+    ptxas warnings besides."""
+    rows = []
+    for name, info in ptxas_entries(report).items():
+        m = re.search(r"mma_probe_kernelILi([01])ELi([01])ELi([01])ELi(\d+)E", name)
+        if m:
+            rows.append(dict(kernel="mma_probe", plan=("s", "pv")[int(m.group(1))], ta=int(m.group(2)),
+                             tb=int(m.group(3)), np=int(m.group(4)), **info))
+    warnings = [line.strip() for line in report.splitlines() if "warning" in line.lower()]
+    return rows, warnings
+
+
 def phase_device():
     from image_editing_framework_torch.ops import _cuda
 
@@ -285,10 +305,13 @@ def phase_device():
          build_s_each={k: round(v, 3) for k, v in each.items()})
     found = {}
     # bf16 instantiations: the forward's 6 head dims x bias x lse; the
-    # backward's 5 (d = 40 runs the 64-column kernels) x bias x (dQ, dK/dV)
-    for source, read, count in (("flash_fwd", forward_instances, 24), ("flash_bwd", backward_instances, 20)):
+    # backward's 5 (d = 40 runs the 64-column kernels) x bias x (dQ, dK/dV);
+    # the probe's 12 (all bf16)
+    for source, read, count in (("flash_fwd", forward_instances, 24), ("flash_bwd", backward_instances, 20),
+                                ("mma_probe", lambda: probe_instances(_cuda.ptxas_report("mma_probe")),
+                                 PROBE_INSTANCES)):
         rows, warnings = read()
-        bf16 = [r for r in rows if r["kernel"].endswith("_bf16")]
+        bf16 = [r for r in rows if r["kernel"].endswith("_bf16") or r["kernel"] == "mma_probe"]
         for row in rows:
             emit("ptxas", **row)
         emit("ptxas_warnings", source=source, warnings=warnings)
@@ -675,7 +698,8 @@ def phase_probe():
             plain_ms += one_ms
             emit("kernel", name="mma_probe", layout=name, d=d, shape=[list(a.shape), list(b.shape)], blocks=blocks,
                  max_abs_err=err, tol=limit, kernel_vs_f64=abs(out[0].item() - exact),
-                 plain_vs_f64=abs(ref[0].item() - exact), dropped_piece_over_tol=tile / limit, plain_ms_per_iter=one_ms)
+                 plain_vs_f64=abs(ref[0].item() - exact), dropped_piece_over_tol=tile / limit, plain_ms_per_iter=one_ms,
+                 plan=bench.plan_for(a, b, contract))
     bench.probe.launches = 0
     table = bench.main()
     launches = bench.probe.launches
@@ -1506,6 +1530,16 @@ def main() -> int:
         "work": "one iteration (a 512 x 512 product on every SM at once) of each of the 4 layouts at d = 40, 64, "
                 "128; plain_ms: the plain version's one iteration of each, one product",
         "library": "none: no PyTorch call computes a looped product that stores nothing",
+        "design": "wgmma SS on 128-byte-swizzled TMA tiles, every layout one form (K-major as stored plain, "
+                  "MN-major by the transpose bit as stored transposed; pv_sub as the sum of the transposed "
+                  "product, P the 64-row side): scores with b resident and the rescaled a streamed in 64-row "
+                  "chunks through a 4-slot ring, the weighted sums with P streamed in 64-deep K chunks (2-3 "
+                  "slots) beside the rescaled V; one producer warp issues every copy, one rescale warpgroup "
+                  "scales each slot's rescaled piece in place while two consumer warpgroups run wgmma on the "
+                  "slots before it, each slot's accumulator summed into a running f32 sum; no atomics, no "
+                  "clusters",
+        "instances": [{key: r.get(key) for key in ("plan", "ta", "tb", "np", "registers", "spill_stores",
+                                                    "spill_loads")} for r in instances["mma_probe"]],
     }
     print(json.dumps({"kernels": [fwd] + bwd + [mma_probe]}))
     print(card_line())

@@ -227,3 +227,34 @@ def test_chip_smoke_covers_p2z():
     assert "per_step = sites * (2 + int(xl) + int(checkpointed))" in path
     assert "expected = (sites * STEPS + per_step * STEPS, sites * STEPS, sites * STEPS)" in path
     assert 0 <= smoke.P2Z_PROBE_STEP < smoke.STEPS
+
+
+PROBE_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__d49fe116_12_mma_probe_cu_d868f69216mma_probe_kernelILi1ELi0ELi1ELi40EEEv14CUtensorMap_stS1_NS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__d49fe116_12_mma_probe_cu_d868f69216mma_probe_kernelILi1ELi0ELi1ELi40EEEv14CUtensorMap_stS1_NS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 46 registers, used 2 barriers, 32 bytes smem
+ptxas info    : (C7519) warpgroup.arrive is injected in around line 1390 by compiler to allow use of registers in GMMA
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__d49fe116_12_mma_probe_cu_d868f69216mma_probe_kernelILi0ELi1ELi1ELi128EEEv14CUtensorMap_stS1_NS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__d49fe116_12_mma_probe_cu_d868f69216mma_probe_kernelILi0ELi1ELi1ELi128EEEv14CUtensorMap_stS1_NS_6ParamsE
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 128 registers, used 2 barriers, 32 bytes smem
+ptxas warning : a made-up warning
+"""
+
+
+def test_probe_instances_read_the_ptxas_report():
+    """The device phase reads each probe instantiation's plan, major-ness,
+    width, registers and spills from the build's report, and its warnings."""
+    smoke = _load_script()
+    rows, warnings = smoke.probe_instances(PROBE_REPORT)
+    assert [{k: r[k] for k in ("kernel", "plan", "ta", "tb", "np", "registers", "spill_stores", "spill_loads")}
+            for r in rows] == [
+        dict(kernel="mma_probe", plan="pv", ta=0, tb=1, np=40, registers=46, spill_stores=0, spill_loads=0),
+        dict(kernel="mma_probe", plan="s", ta=1, tb=1, np=128, registers=128, spill_stores=4, spill_loads=4)]
+    assert warnings == ["ptxas warning : a made-up warning"]
+    # one instantiation for each S layout and each PV major-ness and wgmma width
+    from image_editing_framework_torch.tools import bench_attn_layouts as tprobe
+
+    assert smoke.PROBE_INSTANCES == 2 + 2 * len(tprobe.PV_WIDTHS)

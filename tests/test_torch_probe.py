@@ -159,3 +159,94 @@ def test_timing_needs_the_card():
     a, b = (_bf16(x) for x in _operands("s_lane"))
     with pytest.raises(RuntimeError, match="card"):
         tprobe.probe_layout(a, b, ((1,), (1,)), blocks=1)
+
+
+def _layout_args(name, d):
+    (ca,), (cb,) = tprobe.LAYOUTS[name][0]
+    a_shape, b_shape = tprobe.LAYOUTS[name][1](d), tprobe.LAYOUTS[name][2](d)
+    return ca == 0, cb == 0, a_shape[1 - ca], b_shape[1 - cb], a_shape[ca]
+
+
+@pytest.mark.parametrize("d", [40, 64, 128])
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_plan_of_each_layout(name, d):
+    """The table the kernel follows: the scores stream the rescaled a
+    against a resident b (K-major stored plain, MN-major stored
+    transposed); the weighted sums stream P in 64-deep K chunks against the
+    rescaled V (MN-major) or V^T (K-major, the sum of the transposed
+    product), at the wgmma width d."""
+    q = tprobe.plan(*_layout_args(name, d))
+    kp = -(-d // 16) * 16
+    want = {
+        "s_lane": dict(cls="s", a_is_b=0, ta=0, tb=0, m=512, n=512, k=d, kp=kp, np=512, rescaled="a",
+                       l2_bytes_per_iter=512 * d * 2),
+        "s_sub": dict(cls="s", a_is_b=0, ta=1, tb=1, m=512, n=512, k=d, kp=kp, np=512, rescaled="a",
+                      l2_bytes_per_iter=512 * d * 2),
+        "pv_lane": dict(cls="pv", a_is_b=0, ta=0, tb=1, m=512, n=d, k=512, kp=512, np=d,
+                        rescaled="b", l2_bytes_per_iter=(512 + d) * 512 * 2),
+        "pv_sub": dict(cls="pv", a_is_b=1, ta=0, tb=0, m=512, n=d, k=512, kp=512, np=d, rescaled="a",
+                       l2_bytes_per_iter=(512 + d) * 512 * 2),
+    }[name]
+    assert {key: q[key] for key in want} == want
+    assert q["ring"] >= 2 and q["smem"] <= tprobe.MAX_SMEM
+    if q["cls"] == "pv":  # P alone is 512 KB: it streams, and as many slots as fit ring it
+        slot = (q["m"] + (-(-q["np"] // 64) * 64 if q["tb"] else q["np"])) * tprobe.CHUNK * 2
+        assert q["ring"] == min(tprobe.MAX_RING_PV, (tprobe.MAX_SMEM - 1024 - tprobe.barrier_bytes(tprobe.MAX_RING_PV)) // slot)
+
+
+def test_plan_of_the_ragged_shapes_and_refusals():
+    """The kernel test's ragged shapes (a 24-row rescaled operand padded to
+    one 64-row chunk and b to one 128-column piece; K = 72 in two 64-deep
+    chunks, V's 24 columns padded to the narrowest wgmma width, 32) and what
+    the kernel refuses."""
+    q = tprobe.plan(False, False, 24, 64, 40)
+    assert (q["cls"], q["m"], q["n"], q["kp"], q["np"], q["rescaled"]) == ("s", 24, 64, 48, 128, "a")
+    q = tprobe.plan(True, True, 24, 128, 40)
+    assert (q["cls"], q["ta"], q["tb"], q["kp"], q["np"]) == ("s", 1, 1, 48, 128)
+    q = tprobe.plan(False, True, 128, 24, 72)
+    assert (q["cls"], q["m"], q["n"], q["kp"], q["np"], q["rescaled"]) == ("pv", 128, 24, 128, 32, "b")
+    assert tprobe.plan(True, False, 512, 512, 64) is None  # lhs strided, rhs plain
+    assert tprobe.plan(False, False, 100, 100, 64) is None  # the larger operand's rows not a multiple of 64
+    assert tprobe.plan(False, True, 64, 512, 64) is None  # plain x transposed with the smaller operand on the left
+    assert tprobe.plan(False, False, 512, 512, 60) is None  # K not a multiple of 8
+    assert tprobe.plan(False, False, 256, 512, 512) is None  # the PV plan's B wider than 128
+
+
+def _sum_through_plan(a, b, contract, iters):
+    """The kernel's arithmetic, step by step in the plan's order: the
+    product laid out as the plan says (the transposed one where ``a_is_b``),
+    K and B's rows zero-padded, each slot's partial product summed on its
+    own (a 64-row chunk of A against all of B in the S plan, a 64-deep K
+    chunk in the PV plan), one running f32 sum."""
+    q = tprobe.plan_for(a, b, contract)
+    (ca,), (cb,) = contract
+    total = torch.zeros((), dtype=torch.float32)
+    for i in range(iters):
+        s = tprobe._scale(i)
+        ai = (a.float() * s).to(a.dtype) if q["rescaled"] == "a" else a
+        bi = (b.float() * s).to(b.dtype) if q["rescaled"] == "b" else b
+        lhs, rhs = tprobe._rows_by_k(ai, ca).float(), tprobe._rows_by_k(bi, cb).float()
+        if q["a_is_b"]:
+            lhs, rhs = rhs, lhs
+        assert lhs.shape == (q["m"], q["k"]) and rhs.shape == (q["n"], q["k"])
+        lhs = torch.nn.functional.pad(lhs, (0, q["kp"] - q["k"]))
+        rhs = torch.nn.functional.pad(rhs, (0, q["kp"] - q["k"], 0, q["np"] - q["n"]))
+        if q["cls"] == "s":
+            parts = [lhs[r:r + tprobe.CHUNK] @ rhs.T for r in range(0, q["m"], tprobe.CHUNK)]
+        else:
+            parts = [lhs[:, c:c + tprobe.CHUNK] @ rhs[:, c:c + tprobe.CHUNK].T for c in range(0, q["kp"], tprobe.CHUNK)]
+        for part in parts:
+            total = total + part.sum()
+    return total
+
+
+@pytest.mark.parametrize("d", [40, 64, 128])
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_sum_through_the_plan_is_the_plain_version(name, d):
+    a, b, contract = tprobe.operands(d, np.random.RandomState(d), "cpu")[name]
+    iters = 2
+    got = _sum_through_plan(a, b, contract, iters).item()
+    ref = tprobe.probe_reference(a, b, contract, iters).item()
+    (ca,), (cb,) = contract
+    s = (a.double() if ca == 1 else a.double().T) @ (b.double() if cb == 1 else b.double().T).T
+    assert abs(got - ref) <= RTOL_ABS_SUM * iters * s.abs().sum().item(), (got, ref)

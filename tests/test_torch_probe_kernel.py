@@ -89,3 +89,52 @@ def test_probe_time_is_linear_in_iters(cuda_device):
     blocks = torch.cuda.get_device_properties(0).multi_processor_count
     r = tprobe.probe_layout(a, b, contract, blocks, lo=256, hi=1280)
     assert r["us_per_iter"] > 0 and 0.8 < r["linearity"] < 1.25, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(tprobe.LAYOUTS))
+def test_probe_kernel_across_the_rings_wrap(cuda_device, name):
+    """Iteration counts that are no multiple of the ring's depth, so that the
+    slots' barriers change phase in the middle of an iteration (the 512 x
+    512 layouts at 5 iterations; a 24-row rescaled operand, one slot an
+    iteration, at 7)."""
+    a, b, contract = tprobe.operands(64, np.random.RandomState(7), cuda_device)[name]
+    cases = [(a, b, contract, 5)]
+    if name == "s_lane":
+        cases.append((a[:24].contiguous(), b[:64].contiguous(), contract, 7))
+    for a, b, contract, iters in cases:
+        out = tprobe.probe(a, b, contract, iters, 3)
+        ref = tprobe.probe_reference(a, b, contract, iters)
+        assert (out == out[0]).all()
+        assert abs(out[0].item() - ref.item()) <= PROBE_RTOL * _abs_sum(a, b, contract, iters)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(tprobe.LAYOUTS))
+def test_probe_kernel_reruns_bit_for_bit(cuda_device, name):
+    """No atomics and a fixed order of the sum: two launches on the same
+    operands give the same bits."""
+    a, b, contract = tprobe.operands(40, np.random.RandomState(3), cuda_device)[name]
+    first = tprobe.probe(a, b, contract, 4, 8)
+    second = tprobe.probe(a, b, contract, 4, 8)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_the_kernels_plan_is_the_tools(cuda_device):
+    """``mma_probe_plan`` in the built library and ``plan`` in the tool agree
+    on every layout and head dim, on the ragged shapes and on refusals."""
+    shapes = []
+    for name, (contract, a_shape, b_shape) in tprobe.LAYOUTS.items():
+        (ca,), (cb,) = contract
+        for d in tprobe.HEAD_DIMS:
+            a, b = a_shape(d), b_shape(d)
+            shapes.append((ca == 0, cb == 0, a[1 - ca], b[1 - cb], a[ca]))
+    shapes += [(False, False, 24, 64, 40), (True, True, 24, 128, 40), (False, True, 128, 24, 72),
+               (True, False, 64, 512, 64), (False, False, 100, 100, 64), (False, True, 64, 512, 64),
+               (False, False, 256, 512, 512), (False, False, 512, 1024, 512)]
+    for shape in shapes:
+        want = tprobe.plan(*shape)
+        if want is not None:
+            want = {key: want[key] for key in tprobe.PLAN_FIELDS}
+        assert tprobe.kernel_plan(*shape) == want, shape
