@@ -38,6 +38,13 @@ Phases, one line of output each (any failure exits non-zero):
      bf16 — image2latent, 50-step DDIM inversion, 50-step P2P replace edit
      with LocalBlend at CFG batch 4, decode — with the launch counts of
      every kernel read around it (forward only);
+     checkpoint path: the reference's entry points on a checkpoint: the
+     main path's weights written as an HF snapshot (fp16, with a synthetic
+     49408-entry CLIP BPE vocab) and as an LDM single file, named through
+     ``sd_mapping.sd_maps`` ("1.5", "ghostv2") and loaded by
+     ``cli.load_pipe`` (timed per component; the two loads bitwise equal),
+     then ``shims`` p2p ``edit_real`` (DDIM) on a 512² PNG and p2p
+     ``edit_syn``, exact launch counts, the PNGs read back;
   5. nti path: the same model and edit through null-text inversion
      (``cli.invert(..., "null-text")``, 50 steps of up to 10 Adam
      iterations, each a UNet forward and backward), the edit taking the
@@ -145,7 +152,11 @@ def bwd_dkv_query_tile(d):
     return BWD_DKV_QUERY_TILE if d <= 80 else BWD_DKV_QUERY_TILE_WIDE
 
 
+EMITTED = {}  # tag -> the fields of its last line
+
+
 def emit(tag, **fields):
+    EMITTED[tag] = fields
     print(json.dumps({"phase": tag, **fields}), flush=True)
 
 
@@ -1030,6 +1041,331 @@ def phase_main_path(model):
     return counts[0], unet_ms, (pipe, lat4, ctx, added)
 
 
+# ---------------------------------------------------------------- checkpoints
+# A checkpoint in the reference's two layouts, written by the phase itself
+# (no weights or vocab files exist to read): the HF snapshot directory and
+# the LDM single file, from the same random weights, fp16 as published.
+
+SAFETENSORS_DTYPES = {torch.float64: "F64", torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
+                      torch.int64: "I64", torch.int32: "I32", torch.int16: "I16", torch.int8: "I8",
+                      torch.uint8: "U8", torch.bool: "BOOL"}
+CKPT_PROMPTS = ["a cat sitting on the grass", "a dog sitting on the grass"]
+CLIP_VOCAB_SIZE = 49408  # <|startoftext|> 49406, <|endoftext|> 49407, as in CLIP's vocab.json
+
+
+def write_safetensors(tensors, path, dtype=None):
+    """Write {key: tensor} as a ``.safetensors`` file (the format's 8-byte
+    header length, JSON header padded to 8 bytes, raw little-endian data),
+    each floating tensor cast to ``dtype`` when given, one tensor at a time
+    through host memory. Returns the bytes of tensor data."""
+    def out_dtype(t):
+        return dtype if dtype is not None and t.is_floating_point() else t.dtype
+
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for key, t in tensors.items():
+        nbytes = t.numel() * out_dtype(t).itemsize
+        header[key] = {"dtype": SAFETENSORS_DTYPES[out_dtype(t)], "shape": list(t.shape),
+                       "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little") + blob)
+        for t in tensors.values():
+            data = t.detach().to(out_dtype(t)).cpu().contiguous().reshape(-1)
+            f.write(memoryview(data.view(torch.uint8).numpy()))
+    return offset
+
+
+def to_ldm_unet(d, cfg):
+    """Inverse of the port's ``convert_ldm_unet``: diffusers UNet keys ->
+    ``model.diffusion_model.*`` (the model is ``tests/test_convert_ldm.py``'s
+    ``to_ldm_unet``)."""
+    from image_editing_framework_torch.models import convert_ldm
+
+    table = convert_ldm.unet_rename_table(cfg)
+    prefixes = sorted(table, key=len, reverse=True)
+    out = {}
+    for k, v in d.items():
+        dk = next((p for p in prefixes if k.startswith(p + ".")), None)
+        if dk is None:
+            raise KeyError(k)
+        rest = k[len(dk) + 1:]
+        if "resnets" in dk:
+            for a, b in convert_ldm._RES_SUB.items():
+                if rest.startswith(b):
+                    rest = a + rest[len(b):]
+                    break
+        if dk.endswith("downsamplers.0") and rest.startswith("conv."):
+            rest = rest[len("conv."):]
+        out[f"model.diffusion_model.{table[dk]}.{rest}"] = v
+    return out
+
+
+def to_ldm_vae(d, cfg):
+    """Inverse of the port's ``convert_ldm_vae``: diffusers VAE keys ->
+    ``first_stage_model.*``, the mid-block attention's linears as 1x1 convs
+    (the model is ``tests/test_convert_ldm.py``'s ``to_ldm_vae``)."""
+    n = len(cfg.block_out_channels)
+    out = {}
+    for k, v in d.items():
+        parts = k.split(".")
+        if parts[0] in ("quant_conv", "post_quant_conv"):
+            out[f"first_stage_model.{k}"] = v
+            continue
+        tower, rest = parts[0], parts[1:]
+        pre = f"first_stage_model.{tower}"
+        if rest[0] in ("conv_in", "conv_out"):
+            out[f"{pre}.{'.'.join(rest)}"] = v
+        elif rest[0] == "conv_norm_out":
+            out[f"{pre}.norm_out.{rest[1]}"] = v
+        elif rest[0] in ("down_blocks", "up_blocks"):
+            level = rest[1] if rest[0] == "down_blocks" else str(n - 1 - int(rest[1]))
+            side = "down" if rest[0] == "down_blocks" else "up"
+            if rest[2] == "resnets":
+                sub = ".".join(rest[4:]).replace("conv_shortcut", "nin_shortcut")
+                out[f"{pre}.{side}.{level}.block.{rest[3]}.{sub}"] = v
+            else:  # downsamplers / upsamplers
+                out[f"{pre}.{side}.{level}.{side}sample.{'.'.join(rest[4:])}"] = v
+        elif rest[0] == "mid_block" and rest[1] == "resnets":
+            out[f"{pre}.mid.block_{int(rest[2]) + 1}.{'.'.join(rest[3:])}"] = v
+        elif rest[0] == "mid_block":  # attentions.0
+            name = {"group_norm": "norm", "to_q": "q", "to_k": "k", "to_v": "v"}.get(rest[3], "proj_out")
+            out[f"{pre}.mid.attn_1.{name}.{rest[-1]}"] = v[:, :, None, None] if v.dim() == 2 else v
+        else:
+            raise KeyError(k)
+    return out
+
+
+def to_ldm_single_file(pipe):
+    """An SD1.x pipeline's weights under the LDM single-file keys: UNet,
+    VAE, and the CLIP-L tower as ``cond_stage_model.transformer.*`` with
+    its ``position_ids``."""
+    text = dict(pipe.text_encoder.state_dict(), **clip_position_ids())
+    return {**to_ldm_unet(pipe.unet.state_dict(), pipe.unet.config),
+            **to_ldm_vae(pipe.vae.state_dict(), pipe.vae.config),
+            **{f"cond_stage_model.transformer.{k}": v for k, v in text.items()}}
+
+
+def clip_position_ids():
+    """The extra key real CLIP checkpoints carry (transformers' buffer)."""
+    return {"text_model.embeddings.position_ids": torch.arange(77, dtype=torch.int64)[None]}
+
+
+def synthetic_clip_vocab(words, size=CLIP_VOCAB_SIZE):
+    """(vocab, merges) laid out as CLIP's: the 256 byte symbols, the same
+    with ``</w>``, one merge chain per word of ``words`` (left to right,
+    making ``word</w>`` one token), filler up to ``size`` - 2, then
+    ``<|startoftext|>`` and ``<|endoftext|>``."""
+    from image_editing_framework_torch.models.tokenizer import _bytes_to_unicode
+
+    symbols = list(_bytes_to_unicode().values())
+    vocab = {s: i for i, s in enumerate(symbols + [s + "</w>" for s in symbols])}
+    merges = {}  # in rank order, each pair once
+    for word in dict.fromkeys(w for w in words if len(w) > 1):
+        piece = word[0]
+        for i, ch in enumerate(word[1:], 1):
+            ch = ch + "</w>" if i == len(word) - 1 else ch
+            merges.setdefault((piece, ch), None)
+            piece += ch
+            vocab.setdefault(piece, len(vocab))
+    for i in range(len(vocab), size - 2):
+        vocab[f"<|filler{i}|>"] = i
+    vocab["<|startoftext|>"], vocab["<|endoftext|>"] = size - 2, size - 1
+    return vocab, list(merges)
+
+
+def write_tokenizer(directory, vocab, merges):
+    import os
+
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(directory, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+
+
+def write_sd_checkpoints(pipe, root, words):
+    """Write ``pipe`` (SD1.x) as an HF snapshot directory ``root/sd`` (fp16
+    weights under the ``.fp16`` names, the text encoder with its
+    ``position_ids``, a synthetic BPE vocab that makes ``words`` whole) and
+    as one LDM single file ``root/single/model.safetensors`` (fp16, the
+    tokenizer beside it). Returns (snapshot dir, single file, data bytes of
+    each)."""
+    import os
+
+    snapshot, single = os.path.join(root, "sd"), os.path.join(root, "single")
+    vocab, merges = synthetic_clip_vocab(words)
+    nbytes = 0
+    for sub, module, name, extra in (("unet", pipe.unet, "diffusion_pytorch_model.fp16", {}),
+                                     ("vae", pipe.vae, "diffusion_pytorch_model.fp16", {}),
+                                     ("text_encoder", pipe.text_encoder, "model", clip_position_ids())):
+        os.makedirs(os.path.join(snapshot, sub))
+        nbytes += write_safetensors(dict(module.state_dict(), **extra),
+                                    os.path.join(snapshot, sub, name + ".safetensors"), torch.float16)
+    write_tokenizer(os.path.join(snapshot, "tokenizer"), vocab, merges)
+    os.makedirs(single)
+    path = os.path.join(single, "model.safetensors")
+    single_bytes = write_safetensors(to_ldm_single_file(pipe), path, torch.float16)
+    write_tokenizer(os.path.join(single, "tokenizer"), vocab, merges)
+    return snapshot, path, nbytes, single_bytes
+
+
+def rss_gib():
+    """(current, peak) resident set of this process, GiB."""
+    import resource
+
+    with open("/proc/self/statm") as f:
+        current = int(f.read().split()[1]) * resource.getpagesize()
+    return current / 2**30, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def timed_loads(fn):
+    """(fn(), [(module, checkpoint bytes, seconds), ...] of every
+    ``load_params`` the registry made in it, total seconds)."""
+    from image_editing_framework_torch.models import registry
+
+    loads, real = [], registry.load_params
+
+    def load_params(module, ckpt, dtype=None, device=None, strict=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(module, ckpt, dtype, device, strict)
+        torch.cuda.synchronize()
+        nbytes = sum(ckpt[k].numel() * ckpt[k].element_size() for k in out.state_dict())
+        loads.append((type(module).__name__, nbytes, time.perf_counter() - t0))
+        return out
+
+    registry.load_params = load_params
+    try:
+        out, seconds = timed(fn)
+    finally:
+        registry.load_params = real
+    return out, loads, seconds
+
+
+def phase_checkpoint_path(pipe):
+    """The reference's own entry points on a checkpoint, SD1.5 at full
+    width, bf16: ``pipe``'s weights (``random_pipeline("1.5", seed=0)``)
+    written as an HF snapshot and as an LDM single file, named through
+    ``sd_mapping.sd_maps`` ("1.5" and "ghostv2"), loaded by ``cli.load_pipe``
+    (timed per component; the two loads bitwise equal, and equal to the
+    weights through fp16), then ``shims`` p2p ``edit_real`` (DDIM inversion)
+    on a 512² PNG the phase writes and p2p ``edit_syn``, each with its
+    exact flash-forward launches, PNGs read back."""
+    import os
+    import shutil
+    import tempfile
+
+    from image_editing_framework_torch import cli, sd_mapping, shims
+    from image_editing_framework_torch.utils.images import decode_png, encode_png
+
+    words = " ".join(CKPT_PROMPTS).split()
+    need = 5 * 2**30
+    base = tempfile.gettempdir()
+    if shutil.disk_usage(base).free < need:  # the checkout's ignored scratch directory instead
+        base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_local")
+        os.makedirs(base, exist_ok=True)
+    usage = shutil.disk_usage(base)
+    emit("checkpoint_disk", directory=base, total_gib=usage.total / 2**30, free_gib=usage.free / 2**30)
+    if usage.free < need:
+        raise AssertionError(f"{usage.free / 2**30:.1f} GiB free in {base}: the checkpoints need 5")
+    saved, cwd = dict(sd_mapping.sd_maps), os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="ief_checkpoint_", dir=base) as tmp:
+        try:
+            t0 = time.perf_counter()
+            snapshot, single, snapshot_bytes, single_bytes = write_sd_checkpoints(pipe, tmp, words)
+            write_s = time.perf_counter() - t0
+            sd_mapping.sd_maps["1.5"], sd_mapping.sd_maps["ghostv2"] = snapshot, single
+            rss_before = rss_gib()[0]
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            loaded, loads, load_s = timed_loads(lambda: cli.load_pipe("1.5"))
+            rss_after, rss_peak = rss_gib()
+            load_peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+            ghost, ghost_loads, ghost_s = timed_loads(lambda: cli.load_pipe("ghostv2"))
+            unequal = []
+            for name in ("unet", "vae", "text_encoder"):
+                a, b, w = (getattr(p, name).state_dict() for p in (loaded, ghost, pipe))
+                if a.keys() != b.keys() or a.keys() != w.keys():
+                    raise AssertionError(f"{name}: the loads' keys differ from the module's")
+                unequal += [f"{name}.{k}" for k in a if not (torch.equal(a[k], b[k]) and torch.equal(
+                    a[k], w[k].to(torch.float16).to(torch.bfloat16)))]
+            if unequal:
+                raise AssertionError(f"{len(unequal)} tensors differ between the snapshot load, the single-file "
+                                     f"load and the weights through fp16: {unequal[:5]}")
+            vocab, _ = synthetic_clip_vocab(words)
+            want_ids = [[vocab["<|startoftext|>"]] + [vocab[w + "</w>"] for w in p.split()] + [vocab["<|endoftext|>"]]
+                        for p in CKPT_PROMPTS]
+            del loaded, ghost
+            torch.cuda.empty_cache()
+
+            work = os.path.join(tmp, "work")
+            os.makedirs(work)
+            os.chdir(work)
+            source = (np.random.RandomState(3).rand(512, 512, 3) * 255).astype(np.uint8)
+            with open("source_image.png", "wb") as f:
+                f.write(encode_png(source))
+            runs = {}
+            for entry, flags, forwards in (
+                    ("edit_real", ["--inversion_type", "ddim", "--source_image", "source_image.png"], 2 * STEPS),
+                    ("edit_syn", [], STEPS)):
+                shutil.rmtree("exp", ignore_errors=True)
+                pipes, real_load_pipe = [], cli.load_pipe
+                cli.load_pipe = lambda *a, **k: pipes.append(real_load_pipe(*a, **k)) or pipes[-1]
+                try:
+                    reset_launch_counts()
+                    _, loads_in_run, run_s = timed_loads(lambda: shims.main(
+                        ["p2p", entry, "--sd_version", "1.5", "--source_prompt", CKPT_PROMPTS[0],
+                         "--target_prompt", CKPT_PROMPTS[1], *flags]))
+                    counts = launch_counts()
+                finally:
+                    cli.load_pipe = real_load_pipe
+                expected = (SITES["sd"] * forwards, 0, 0)
+                if counts != expected:
+                    raise AssertionError(f"p2p {entry} launched (forward, dQ, dK/dV) {counts} times, "
+                                         f"expected {expected}")
+                ids = [pipes[0].tokenizer.encode(p) for p in CKPT_PROMPTS]
+                if ids != want_ids:
+                    raise AssertionError(f"token ids {ids}, the synthetic vocab defines {want_ids}")
+                names = ("source", "inversion", "edit") if entry == "edit_real" else ("source", "edit")
+                images = {}
+                for name in names:
+                    with open(os.path.join("exp", name + ".png"), "rb") as f:
+                        images[name] = decode_png(f.read())
+                    img = images[name]
+                    if img is None or img.shape != (512, 512, 3) or img.dtype != np.uint8 or img.std() == 0:
+                        raise AssertionError(f"exp/{name}.png of p2p {entry}: {None if img is None else img.shape}, "
+                                             f"constant or misshapen")
+                if entry == "edit_real" and not np.array_equal(images["source"], source):
+                    raise AssertionError("exp/source.png differs from the source image")
+                run_load_s = sum(seconds for _, _, seconds in loads_in_run)
+                runs[entry] = dict(seconds=run_s, load_s=run_load_s, image_s=run_s - run_load_s,
+                                   flash_launches=counts[0],
+                                   image_means={k: float(v.mean()) for k, v in images.items()})
+                del pipes
+                torch.cuda.empty_cache()
+        finally:
+            os.chdir(cwd)
+            sd_mapping.sd_maps.clear()
+            sd_mapping.sd_maps.update(saved)
+
+    def per_component(entries):
+        return [dict(module=m, gb=b / 1e9, s=s, gb_per_s=b / 1e9 / s) for m, b, s in entries]
+
+    load_bytes = sum(b for _, b, _ in loads)
+    emit("checkpoint_path", model="SD1.5 (random weights, seed 0, written fp16, loaded bf16)", resolution=512,
+         dtype="bfloat16", steps=STEPS, write_s=write_s, snapshot_gb=snapshot_bytes / 1e9,
+         single_file_gb=single_bytes / 1e9, load_s=load_s, load_gb=load_bytes / 1e9,
+         load_gb_per_s=load_bytes / 1e9 / load_s, load_components=per_component(loads),
+         host_rss_before_gib=rss_before, host_rss_after_gib=rss_after, host_peak_rss_gib=rss_peak,
+         device_load_peak_gib=load_peak, single_file_load_s=ghost_s,
+         single_file_components=per_component(ghost_loads), loads_bitwise_equal=True,
+         edit_real=runs["edit_real"], edit_syn=runs["edit_syn"],
+         main_path_image_s=EMITTED["main_path"]["image_s"], token_ids=want_ids, card=card_line())
+    return runs["edit_real"]["flash_launches"] + runs["edit_syn"]["flash_launches"]
+
+
 def phase_nti_path(model, pipe):
     """The same edit through null-text inversion, the reference's default:
     ``cli.invert(..., "null-text", "p2p")`` (DDIM inversion, then 50 steps of
@@ -1422,6 +1758,8 @@ def main() -> int:
     launches, unet_ms, bwd_launches, masa_runs, p2z_runs = {}, {}, {}, {}, {}
     for model, prefix in (("sd", ""), ("xl", "xl_")):
         launches[model], unet_ms[model], profile_args = run(prefix + "main_path", phase_main_path, model)
+        if model == "sd":
+            launches["checkpoint"] = run("checkpoint_path", phase_checkpoint_path, profile_args[0])
         nti_counts, nti = run(prefix + "nti_path", phase_nti_path, model, profile_args[0])
         bwd_launches[model] = nti_counts[1:]
         run(prefix + "profile", phase_profile, model, *profile_args)
@@ -1498,7 +1836,8 @@ def main() -> int:
         "name": "flash_fwd", "route": "cuda", "source": "image_editing_framework_torch/csrc/flash_fwd.cu",
         "replaces": f"{tpu}:76", "also_replaces": f"{tpu}:205",
         "launches": sum(launches.values()),
-        "launches_by_path": {"main_path": launches["sd"], "xl_main_path": launches["xl"],
+        "launches_by_path": {"main_path": launches["sd"], "checkpoint_path": launches["checkpoint"],
+                             "xl_main_path": launches["xl"],
                              "masactrl_path": launches["masactrl"], "xl_masactrl_path": launches["xl_masactrl"],
                              "pnp_path": launches["pnp"], "xl_pnp_path": launches["xl_pnp"],
                              "p2z_path": launches["p2z"], "xl_p2z_path": launches["xl_p2z"],

@@ -5,9 +5,11 @@ text-driven image editing on Stable Diffusion (SD1.x, SDXL) with the
 framework's attention controls, written in PyTorch, with every TPU kernel
 of the JAX package rewritten by hand for the H100 (``csrc/*.cu``, built
 with ``nvcc`` at first use). Ported so far: Prompt-to-Prompt, MasaCtrl,
-Plug-and-Play and pix2pix-zero, DDIM and null-text inversion, the SD1.5 and
-SDXL pipelines (with seeded random weights, or weights loaded under
-diffusers keys).
+Plug-and-Play and pix2pix-zero, DDIM and null-text inversion, the SD1.5,
+SD2.1 and SDXL pipelines (with seeded random weights, or loaded from
+HF-snapshot directories and single-file LDM checkpoints by
+``load_pipeline``, with the CLIP BPE tokenizer), and the reference's
+``edit_real`` / ``edit_syn`` entry points (``cli.py``, ``shims.py``).
 
 Importing the package imports nothing heavy: the top-level API below is
 resolved on first access, as the JAX package's is.
@@ -19,6 +21,8 @@ _API = {
     "SDPipeline": ("image_editing_framework_torch.pipelines", "SDPipeline"),
     "random_pipeline": ("image_editing_framework_torch.pipelines", "random_pipeline"),
     "tiny_pipeline": ("image_editing_framework_torch.pipelines", "tiny_pipeline"),
+    "load_pipeline": ("image_editing_framework_torch.models.registry", "load_pipeline"),
+    "CLIPTokenizer": ("image_editing_framework_torch.models.tokenizer", "CLIPTokenizer"),
     "ddim_invert": ("image_editing_framework_torch.inversion.ddim", "ddim_invert"),
     "null_text_inversion": ("image_editing_framework_torch.inversion.nti", "null_text_inversion"),
     "p2p_edit": ("image_editing_framework_torch.methods.p2p", "p2p_edit"),

@@ -1,17 +1,23 @@
-"""The shared logic of the editing entry points.
+"""The editing entry points and their shared logic.
 
-Counterpart of ``image_editing_framework_tpu/cli.py``: ``invert`` is the
-normal entry that picks the inversion (DDIM, null-text or direct) for a real
-image, with the reference's learning-rate schedules (``nti_config_for``);
-``run_method`` dispatches one edit to P2P, MasaCtrl, PnP or pix2pix-zero,
-with the MasaCtrl command-line options merged by ``_masactrl_cli_kwargs``.
-The argument parsing and the per-method ``*_main`` entry points arrive with
-the CLI slice.
+Counterpart of ``image_editing_framework_tpu/cli.py``. The reference ships
+its scripts per method (edit_syn.py, edit_real.py) with identical plumbing;
+here it lives once: ``edit_real_main`` / ``edit_syn_main`` parse the
+reference's flags (``common_parser``), load the pipeline named by
+``--sd_version`` through ``sd_mapping.py`` (``load_pipe``), and write
+``./exp/*.png``; ``invert`` picks the inversion (DDIM, null-text or direct)
+for a real image, with the reference's learning-rate schedules
+(``nti_config_for``); ``run_method`` dispatches one edit to P2P, MasaCtrl,
+PnP or pix2pix-zero, with the MasaCtrl command-line options merged by
+``_masactrl_cli_kwargs``. ``shims.py`` holds each method's defaults. The
+PIE-Bench sweep (``test_main``) waits for the sweep's port.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -24,9 +30,55 @@ from image_editing_framework_torch.methods.masactrl import default_masactrl_conf
 from image_editing_framework_torch.methods.p2p import p2p_edit
 from image_editing_framework_torch.methods.p2z import p2z_edit
 from image_editing_framework_torch.methods.pnp import pnp_edit
+from image_editing_framework_torch.utils.images import load_image, save_img
 
 GUIDANCE_SCALE = 7.5
+NUM_INFERENCE_STEPS = 50
+OUT_PATH = "./exp"  # where the entry points write their images
 INVERSION_TYPES = ("ddim", "null-text", "direct")
+
+
+def common_parser(
+    name: str,
+    default_seed: int = 42,
+    default_source: str = "a gray horse in the field",
+    default_target: str = "a whie horse in the field",
+    real: bool = True,
+    default_inversion: str = "null-text",
+    method: Optional[str] = None,
+) -> argparse.ArgumentParser:
+    """The reference's flags and defaults (p2p/edit_real.py:19-27).
+    ``--device`` is the index of the CUDA card to run on."""
+    p = argparse.ArgumentParser(name)
+    p.add_argument("--sd_version", type=str, default="1.5")
+    p.add_argument("--device", type=int, default=0)
+    p.add_argument("--seed", type=int, default=default_seed)
+    p.add_argument("--source_prompt", type=str, default=default_source)
+    p.add_argument("--target_prompt", type=str, default=default_target)
+    if real:
+        p.add_argument("--source_image", type=str, default="./test.jpg")
+        p.add_argument("--inversion_type", type=str, default=default_inversion)
+    if method == "masactrl":
+        # the reference controller's optional knobs
+        # (masactrl/model/attention_control.py:16, sd_utils.py:73-77)
+        p.add_argument("--neg_prompt", type=str, default="")
+        p.add_argument("--step_idx", type=str, default=None,
+                       help="comma-separated explicit step list (overrides start_step)")
+        p.add_argument("--layer_idx", type=str, default=None,
+                       help="comma-separated explicit layer list (overrides start_layer)")
+    return p
+
+
+def load_pipe(sd_version: str, dtype: torch.dtype = torch.bfloat16, device=None):
+    """The pipeline ``sd_mapping.sd_maps[sd_version]`` names, with the
+    reference's 50-step schedule, on ``device`` (the card by default)."""
+    from image_editing_framework_torch.models.registry import load_pipeline
+
+    return load_pipeline(sd_version, NUM_INFERENCE_STEPS, dtype=dtype, device=device)
+
+
+def resolution_for(pipe) -> int:
+    return 1024 if pipe.model_type == "xl" else 512
 
 
 def nti_config_for(method: str, pipe) -> NTIConfig:
@@ -117,3 +169,60 @@ def run_method(
     else:
         raise ValueError(f"unknown method {method}")
     return imgs[0], imgs[1]
+
+
+def _setup(method: str, args, method_kwargs: Optional[dict]):
+    """(pipeline on the card ``--device`` names, method kwargs with the
+    MasaCtrl flags merged, resolution, sampler); makes ``OUT_PATH``."""
+    pipe = load_pipe(args.sd_version, device=torch.device("cuda", args.device))
+    if method == "masactrl":
+        method_kwargs = _masactrl_cli_kwargs(args, pipe, method_kwargs)
+    res = resolution_for(pipe)
+    os.makedirs(OUT_PATH, exist_ok=True)
+    return pipe, method_kwargs, res, SamplerConfig(height=res, width=res, seed=args.seed)
+
+
+def edit_real_main(method: str, argv=None, method_kwargs: Optional[dict] = None,
+                   default_inversion: str = "null-text",
+                   default_source: str = "a gray horse in the field",
+                   default_target: str = "a whie horse in the field"):
+    """Real-image edit (reference: */edit_real.py): load ``--source_image``
+    at the model's resolution, invert it (``--inversion_type``), edit it
+    from ``--source_prompt`` to ``--target_prompt``; writes
+    ``./exp/{source,inversion,edit}.png``."""
+    args = common_parser(f"{method} edit_real", real=True, default_inversion=default_inversion,
+                         default_source=default_source, default_target=default_target,
+                         method=method).parse_args(argv)
+    pipe, method_kwargs, res, sampler = _setup(method, args, method_kwargs)
+    image = load_image(args.source_image, res, res)
+    save_img(image, os.path.join(OUT_PATH, "source.png"))
+    latent, traj, uncond_seq = invert(pipe, image, args.source_prompt, args.inversion_type, method)
+    replay = traj if args.inversion_type == "direct" else None
+    inv_img, edit_img = run_method(method, pipe, [args.source_prompt, args.target_prompt], latent, sampler,
+                                   uncond_seq, method_kwargs, source_replay=replay)
+    save_img(inv_img, os.path.join(OUT_PATH, "inversion.png"))
+    save_img(edit_img, os.path.join(OUT_PATH, "edit.png"))
+
+
+def edit_syn_main(method: str, argv=None, method_kwargs: Optional[dict] = None,
+                  default_seed: int = 8888,
+                  default_source: str = "a photo of a house on a mountain",
+                  default_target: str = "a photo of a house on a mountain at fall"):
+    """Synthetic edit (reference: */edit_syn.py): one start latent from
+    ``--seed``, denoised under ``--source_prompt`` and ``--target_prompt``;
+    writes ``./exp/{source,edit}.png``.
+
+    The start latent is ``torch.randn`` from
+    ``torch.Generator(device).manual_seed(seed)`` on the pipeline's device,
+    cast to its dtype. JAX's PRNG stream cannot be reproduced in torch, so a
+    seed gives another image here than in the JAX package."""
+    args = common_parser(f"{method} edit_syn", real=False, default_seed=default_seed,
+                         default_source=default_source, default_target=default_target,
+                         method=method).parse_args(argv)
+    pipe, method_kwargs, res, sampler = _setup(method, args, method_kwargs)
+    gen = torch.Generator(device=pipe.device).manual_seed(args.seed)
+    latent = torch.randn((1, res // 8, res // 8, 4), generator=gen, device=pipe.device).to(pipe.dtype)
+    src_img, edit_img = run_method(method, pipe, [args.source_prompt, args.target_prompt], latent, sampler,
+                                   None, method_kwargs)
+    save_img(src_img, os.path.join(OUT_PATH, "source.png"))
+    save_img(edit_img, os.path.join(OUT_PATH, "edit.png"))

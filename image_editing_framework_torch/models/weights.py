@@ -1,5 +1,6 @@
-"""Weights for the port's models: strict loading of diffusers-keyed arrays,
-and a deterministic random initialiser at production shape.
+"""Weights for the port's models: strict loading of diffusers-keyed arrays
+(on ``models/loader.py``'s path), and a deterministic random initialiser at
+production shape.
 
 The port's UNet, VAE and CLIP modules are named so that ``state_dict()``
 keys are the diffusers / transformers keys. The JAX package's
@@ -18,25 +19,19 @@ from torch import nn
 
 
 def load_weights(module: nn.Module, arrays: Mapping[str, np.ndarray]) -> nn.Module:
-    """Copy ``{diffusers key: array}`` into ``module`` in place, strictly.
+    """Copy ``{diffusers key: array or tensor}`` into ``module`` in place,
+    strictly: ``models/loader.py load_params`` with ``strict=True``.
 
     Raises KeyError on a missing or an extra key and ValueError on a shape
-    mismatch, naming the key. Arrays are cast to each parameter's dtype and
-    copied to its device.
+    mismatch, naming the key, before anything is copied. Each tensor is
+    copied to the parameter's device and cast there to its dtype (numpy
+    arrays are taken without a copy where they are writable). Checkpoint
+    loading (``models/registry.py``) goes through ``load_params`` without
+    ``strict``, which ignores extra keys as the JAX loader does.
     """
-    own = module.state_dict()
-    missing = sorted(set(own) - set(arrays))
-    extra = sorted(set(arrays) - set(own))
-    if missing or extra:
-        raise KeyError(f"weights do not match the module: missing {missing[:8]}, extra {extra[:8]}")
-    for key, target in own.items():
-        src = np.asarray(arrays[key])
-        if tuple(src.shape) != tuple(target.shape):
-            raise ValueError(f"shape mismatch for {key}: weights {src.shape} vs module {tuple(target.shape)}")
-    with torch.no_grad():
-        for key, target in own.items():
-            target.copy_(torch.as_tensor(np.array(arrays[key])).to(target.dtype))
-    return module
+    from image_editing_framework_torch.models.loader import load_params
+
+    return load_params(module, arrays, strict=True)
 
 
 def random_init_(module: nn.Module, seed: int, scale: float = 0.02) -> nn.Module:

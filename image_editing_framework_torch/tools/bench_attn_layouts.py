@@ -281,11 +281,13 @@ def _event_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def probe_layout(a, b, contract, blocks: int, lo: int = 512, hi: int = 2560, reps: int = 3) -> Dict[str, float]:
+def probe_layout(a, b, contract, blocks: int, lo: int = 512, hi: int = 2560, reps: int = 5) -> Dict[str, float]:
     """Per-iteration time of one layout by the slope between two iteration
-    counts (the best of ``reps`` launches each, CUDA events), with a third
-    count in the middle to show the time is linear in ``iters``: a compiler
-    that hoisted the product out of the loop would give a flat line.
+    counts (the best of ``reps`` launches each, CUDA events, the three
+    counts in turns so that a change of the card's clock between launches
+    falls on all of them), with a third count in the middle to show the
+    time is linear in ``iters``: a compiler that hoisted the product out of
+    the loop would give a flat line.
 
     Returns us per iteration, TFLOP/s of the whole card (``blocks`` blocks
     at once, 2*M*N*K operations per iteration and block), the share of the
@@ -298,7 +300,10 @@ def probe_layout(a, b, contract, blocks: int, lo: int = 512, hi: int = 2560, rep
     flops = 2.0 * a.shape[1 - ca] * b.shape[1 - cb] * a.shape[ca]
     mid = (lo + hi) // 2
     probe(a, b, contract, lo, blocks)  # build, load, warm up
-    t = {n: min(_event_ms(lambda: probe(a, b, contract, n, blocks)) for _ in range(reps)) for n in (lo, mid, hi)}
+    t = dict.fromkeys((lo, mid, hi), float("inf"))
+    for _ in range(reps):
+        for n in t:
+            t[n] = min(t[n], _event_ms(lambda: probe(a, b, contract, n, blocks)))
     per_iter_ms = (t[hi] - t[lo]) / (hi - lo)
     if not per_iter_ms > 0:
         raise RuntimeError(f"the probe's time does not grow with iters: {t}")

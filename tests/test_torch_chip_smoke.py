@@ -63,8 +63,8 @@ def test_chip_smoke_wires_every_phase_into_main():
     smoke = _load_script()
     source = inspect.getsource(smoke.main)
     for phase in ("phase_device", "phase_kernels", "phase_bwd_kernels", "phase_probe", "phase_tiny",
-                  "phase_main_path", "phase_nti_path", "phase_profile", "phase_masactrl_path", "phase_pnp_path",
-                  "phase_p2z_path", "phase_refiner"):
+                  "phase_main_path", "phase_checkpoint_path", "phase_nti_path", "phase_profile",
+                  "phase_masactrl_path", "phase_pnp_path", "phase_p2z_path", "phase_refiner"):
         assert callable(getattr(smoke, phase)) and phase in source, phase
     assert '("sd", ""), ("xl", "xl_")' in source  # both models go through main, NTI and profile
     for kernel in ("flash_fwd", "flash_bwd_", "mma_probe"):
@@ -75,6 +75,9 @@ def test_chip_smoke_wires_every_phase_into_main():
     assert "xl_tiny" in inspect.getsource(smoke.phase_tiny) and "tiny_edits" in inspect.getsource(smoke.phase_tiny)
     assert '"at_bias"' in source and '"masactrl_path": launches["masactrl"]' in source
     assert '"at_p2z"' in source and '"p2z_path": launches["p2z"]' in source and '"xl_p2z_path"' in source
+    # the checkpoint phase runs on SD1.5 between its main path and its NTI path, and its launches count
+    assert source.index("phase_checkpoint_path") < source.index("phase_nti_path")
+    assert '"checkpoint_path": launches["checkpoint"]' in source
     # the biased shapes: union doubles the gated sites' keys, mask keeps them
     assert sum(calls for v, *_, calls in smoke.BIAS_SHAPES["sd"] if v == "union") == 6
     assert sum(calls for v, *_, calls in smoke.BIAS_SHAPES["xl"] if v == "union") == 16
@@ -258,3 +261,72 @@ def test_probe_instances_read_the_ptxas_report():
     from image_editing_framework_torch.tools import bench_attn_layouts as tprobe
 
     assert smoke.PROBE_INSTANCES == 2 + 2 * len(tprobe.PV_WIDTHS)
+
+
+def test_checkpoint_writer_round_trips_through_safetensors(tmp_path):
+    """``write_safetensors`` (the GPU machine has no ``safetensors``) writes
+    files that ``safetensors`` reads back: every dtype the phase writes, the
+    fp16 cast of floating tensors, integers left as they are."""
+    from safetensors.numpy import load_file
+    from safetensors.torch import load_file as torch_load_file
+
+    smoke = _load_script()
+    g = torch.Generator().manual_seed(0)
+    tensors = {"w": torch.randn(5, 3, generator=g), "b": torch.randn(7, generator=g).to(torch.bfloat16),
+               "i": torch.arange(6, dtype=torch.int64).reshape(1, 6), "s": torch.tensor(1.5),
+               "t": torch.randn(4, 6, generator=g).T, **smoke.clip_position_ids()}
+    path = str(tmp_path / "a.safetensors")
+    nbytes = smoke.write_safetensors(tensors, path)
+    got = torch_load_file(path)
+    assert nbytes == sum(t.numel() * t.element_size() for t in tensors.values())
+    assert set(got) == set(tensors) and all(torch.equal(got[k], v) for k, v in tensors.items())
+    path16 = str(tmp_path / "b.safetensors")
+    smoke.write_safetensors({k: v for k, v in tensors.items() if k != "b"}, path16, torch.float16)
+    arrays = load_file(path16)
+    np.testing.assert_array_equal(arrays["w"], tensors["w"].to(torch.float16).numpy())
+    np.testing.assert_array_equal(arrays["t"], tensors["t"].to(torch.float16).numpy())
+    assert arrays["i"].dtype == np.int64 and arrays["text_model.embeddings.position_ids"].shape == (1, 77)
+
+
+def test_inverse_ldm_rename_gives_back_the_snapshot_keys_at_full_width(monkeypatch):
+    """The phase's single file (``to_ldm_single_file``) at SD1.5's full
+    width, on meta tensors, through the port's ``convert_single_file``:
+    every key and shape of the snapshot's UNet, VAE and text encoder (with
+    its ``position_ids``)."""
+    from image_editing_framework_torch.models import configs, convert_ldm
+    from image_editing_framework_torch.models.clip import CLIP_VIT_L, CLIPTextModel
+    from image_editing_framework_torch.models.unet import UNet2DCondition
+    from image_editing_framework_torch.models.vae import AutoencoderKL, VAEConfig
+    from image_editing_framework_torch.pipelines import SDPipeline
+
+    smoke = _load_script()
+    with torch.device("meta"):
+        pipe = SDPipeline("sd", UNet2DCondition(configs.SD15_UNET), AutoencoderKL(VAEConfig()),
+                          CLIPTextModel(CLIP_VIT_L), None, None, torch.device("meta"))
+    state = smoke.to_ldm_single_file(pipe)
+    assert all(k.startswith(("model.diffusion_model.", "first_stage_model.", "cond_stage_model.transformer."))
+               for k in state)
+    monkeypatch.setattr(convert_ldm, "load_safetensors", lambda path: state)
+    unet, vae, text = convert_ldm.convert_single_file("ghostv2.safetensors", configs.SD15_UNET, VAEConfig())
+    for got, module, extra in ((unet, pipe.unet, {}), (vae, pipe.vae, {}),
+                               (text, pipe.text_encoder, smoke.clip_position_ids())):
+        want = dict(module.state_dict(), **extra)
+        assert set(got) == set(want), sorted(set(got) ^ set(want))[:8]
+        assert all(tuple(got[k].shape) == tuple(want[k].shape) for k in want)
+
+
+def test_synthetic_vocab_is_clip_shaped():
+    """49408 entries, the special tokens at CLIP's ids, the byte symbols
+    first, and merges that make each prompt word one token."""
+    from image_editing_framework_torch.models.tokenizer import CLIPTokenizer
+
+    smoke = _load_script()
+    words = " ".join(smoke.CKPT_PROMPTS).split()
+    vocab, merges = smoke.synthetic_clip_vocab(words)
+    assert len(vocab) == 49408 and sorted(vocab.values()) == list(range(49408))
+    assert (vocab["<|startoftext|>"], vocab["<|endoftext|>"]) == (49406, 49407)
+    assert len(set(merges)) == len(merges)
+    tok = CLIPTokenizer(vocab, merges)
+    for prompt in smoke.CKPT_PROMPTS:
+        assert tok.encode(prompt) == [49406] + [vocab[w + "</w>"] for w in prompt.split()] + [49407]
+    assert {"cat</w>", "dog</w>"} <= set(vocab)

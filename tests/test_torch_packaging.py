@@ -1,8 +1,9 @@
 """The port as a package: ``find_packages`` sees it and its subpackages, the
 package data lists its CUDA sources, the lazy top-level API resolves
 without importing JAX, the build directory follows its environment
-variable, and no module of the port (nor ``chip_smoke.py``) imports JAX or
-the JAX package."""
+variable, and no module of the port (nor ``chip_smoke.py``) imports JAX,
+the JAX package, ``regex`` or ``safetensors``, or Pillow at module level
+(the GPU machine has none of the first four)."""
 
 import ast
 import fnmatch
@@ -19,7 +20,7 @@ from image_editing_framework_torch.ops import _cuda
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "image_editing_framework_torch")
 API = ("SDPipeline", "ddim_invert", "null_text_inversion", "p2p_edit", "masactrl_edit", "pnp_edit", "p2z_edit",
-       "random_pipeline", "tiny_pipeline")
+       "random_pipeline", "tiny_pipeline", "load_pipeline", "CLIPTokenizer")
 
 
 def _pyproject():
@@ -33,7 +34,7 @@ def test_find_packages_sees_the_port():
     include = _pyproject()["tool"]["setuptools"]["packages"]["find"]["include"]
     found = set(setuptools.find_packages(where=ROOT, include=include))
     subpackages = {f"image_editing_framework_torch.{name}" for name in
-                   ("core", "inversion", "methods", "models", "ops", "tools")}
+                   ("core", "inversion", "methods", "models", "ops", "tools", "utils")}
     assert {"image_editing_framework_torch"} | subpackages <= found
     assert "image_editing_framework_tpu" in found  # the JAX package still installs
 
@@ -56,9 +57,10 @@ def test_lazy_api_resolves_without_jax():
         "import image_editing_framework_torch as port\n"
         f"for name in {API!r}: assert callable(getattr(port, name)), name\n"
         "new = set(sys.modules) - before\n"
-        "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'image_editing_framework_tpu'))\n"
+        "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'image_editing_framework_tpu',"
+        " 'regex', 'safetensors', 'PIL'))\n"
         "assert not bad, bad\n"
-        "for name in ('load_pipeline', 'run_sweep'):\n"
+        "for name in ('run_sweep', 'serve'):\n"
         "    try:\n"
         "        getattr(port, name)\n"
         "    except AttributeError:\n"
@@ -74,11 +76,14 @@ def test_api_names_are_the_modules_functions():
     from image_editing_framework_torch.methods import p2z
     from image_editing_framework_torch.methods.masactrl import masactrl_edit
     from image_editing_framework_torch.methods.pnp import pnp_edit
+    from image_editing_framework_torch.models.registry import load_pipeline
+    from image_editing_framework_torch.models.tokenizer import CLIPTokenizer
 
     assert port.masactrl_edit is masactrl_edit and port.pnp_edit is pnp_edit
     assert port.p2z_edit is p2z.p2z_edit
+    assert port.load_pipeline is load_pipeline and port.CLIPTokenizer is CLIPTokenizer
     assert set(API) <= set(dir(port))
-    for name in ("load_pipeline", "run_sweep"):
+    for name in ("run_sweep", "serve"):
         with pytest.raises(AttributeError):
             getattr(port, name)
 
@@ -95,22 +100,34 @@ def test_build_dir_follows_its_variable(monkeypatch, tmp_path):
 
 
 def _imported_roots(path):
+    """(roots imported anywhere, roots imported at module level) of a file."""
     with open(path) as f:
         tree = ast.parse(f.read(), path)
-    roots = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            roots |= {alias.name.split(".")[0] for alias in node.names}
-        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
-            roots.add(node.module.split(".")[0])
-    return roots
+
+    def roots(nodes):
+        out = set()
+        for node in nodes:
+            if isinstance(node, ast.Import):
+                out |= {alias.name.split(".")[0] for alias in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+                out.add(node.module.split(".")[0])
+        return out
+
+    top = [node for node in tree.body if isinstance(node, (ast.Import, ast.ImportFrom))]
+    return roots(ast.walk(tree)), roots(top)
 
 
 def test_the_port_imports_no_jax():
+    """Nowhere: JAX, the JAX package, ``regex``, ``safetensors``; not at
+    module level: Pillow (``utils/images.py`` imports it inside the call
+    that needs it)."""
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, name) for name in names if name.endswith(".py")]
-    assert len(files) > 30
+    assert len(files) > 35
     for path in files:
-        bad = _imported_roots(path) & {"jax", "jaxlib", "flax", "optax", "image_editing_framework_tpu"}
+        anywhere, top = _imported_roots(path)
+        bad = anywhere & {"jax", "jaxlib", "flax", "optax", "image_editing_framework_tpu", "regex", "safetensors"}
         assert not bad, (path, bad)
+        assert "PIL" not in top, path
+    assert "PIL" in _imported_roots(os.path.join(PKG, "utils", "images.py"))[0]

@@ -8,6 +8,10 @@ frameworks; NHWC <-> NCHW happens only inside the port, never here.
 
 from __future__ import annotations
 
+import functools
+import importlib.util
+import os
+
 import numpy as np
 import torch
 
@@ -126,3 +130,31 @@ def check_grad_margin(grads, count):
     for g in grads:
         a = g.abs()
         assert a.min().item() >= GRAD_MARGIN * a.max().item(), a.min().item() / a.max().item()
+
+
+@functools.lru_cache()
+def chip_smoke():
+    """chip_smoke.py as a module (importing it runs nothing): its checkpoint
+    writer, inverse LDM rename and synthetic CLIP vocab serve the loader,
+    registry and CLI tests."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_helpers", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def export_random(module, seed, key_fn, *args):
+    """Diffusers-keyed f32 arrays of a JAX module's params: the tree's
+    shapes from ``eval_shape`` (no init is run or compiled), values
+    N(0, 0.02²) from a seeded numpy generator, norm scales centred at 1;
+    contiguous (``export_params`` returns transposed views, which
+    ``safetensors.numpy.save_file`` would write in storage order)."""
+    import jax
+
+    skeleton = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *args))
+    rng = np.random.RandomState(seed)
+    params = {path: (rng.randn(*leaf.shape) * 0.02 + (path[-1] == "scale")).astype(np.float32)
+              for path, leaf in loader._flatten(skeleton["params"]).items()}
+    exported = loader.export_params({"params": loader._unflatten(params)}, key_fn)
+    return {k: np.ascontiguousarray(v) for k, v in exported.items()}
