@@ -45,6 +45,12 @@ Phases, one line of output each (any failure exits non-zero):
      ``cli.load_pipe`` (timed per component; the two loads bitwise equal),
      then ``shims`` p2p ``edit_real`` (DDIM) on a 512² PNG and p2p
      ``edit_syn``, exact launch counts, the PNGs read back;
+     sweep path: the PIE-Bench sweep (``shims`` p2p ``test``) from that
+     snapshot over a mini PIE of 512² JPEGs (three items in the default
+     categories, one outside): with ``--save_inversions``, again (resume),
+     and from the cache (``--inversion_path``), exact launch counts, the
+     PNGs, event log and stats read back, the cache's edits held to the
+     first run's;
   5. nti path: the same model and edit through null-text inversion
      (``cli.invert(..., "null-text")``, 50 steps of up to 10 Adam
      iterations, each a UNet forward and backward), the edit taking the
@@ -63,8 +69,12 @@ Phases, one line of output each (any failure exits non-zero):
      and a forward on the updated latent), then the edit alone on the NTI
      path's embeddings; exact launch counts of each run, seconds of each
      pass, and one guided step under torch.profiler;
-  9. xl main path, xl nti path, xl profile, xl masactrl path, xl pnp path,
-     xl p2z path: the same on SDXL at full width, 1024², bf16 (the NTI path
+  9. xl main path, xl checkpoint path, xl nti path, xl profile, xl masactrl
+     path, xl pnp path, xl p2z path: the same on SDXL at full width, 1024²,
+     bf16; the checkpoint path writes the SDXL base as a snapshot and a
+     single file and the refiner's UNet as a snapshot, loads "xl-base",
+     "animagineXL" and "xl-refiner" (bitwise, shared modules, one refiner
+     img2img) and runs the p2p shim's ``edit_real`` at 1024² (the NTI path
      with ``XL_INNER_STEPS`` inner iterations per step and the checkpointed
      UNet; p2z with the references recomputed from pass 1's trajectory and
      the checkpointed UNet, the XL defaults), decode full-frame and tiled;
@@ -81,6 +91,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -132,6 +143,7 @@ BWD_DQ_KEY_TILE_WIDE = 64  # ... at d = 160 (kDqBKWide)
 BWD_DKV_QUERY_TILE = 64  # queries per streamed tile of the bf16 dK/dV kernel up to d = 80 (kDkvBQ)
 BWD_DKV_QUERY_TILE_WIDE = 32  # ... at d = 160 (kDkvBQWide)
 PROFILE_REPS = 4
+XL_DISK_GIB = 20  # the SDXL base snapshot and single file (6.9 GB each) and the refiner's UNet (4.5 GB)
 
 
 def fwd_key_tile(d):
@@ -1050,6 +1062,20 @@ SAFETENSORS_DTYPES = {torch.float64: "F64", torch.float32: "F32", torch.float16:
                       torch.int64: "I64", torch.int32: "I32", torch.int16: "I16", torch.int8: "I8",
                       torch.uint8: "U8", torch.bool: "BOOL"}
 CKPT_PROMPTS = ["a cat sitting on the grass", "a dog sitting on the grass"]
+# the sweep phase's mini PIE: (image path under annotation_images, source
+# prompt, target prompt, with PIE's [edit] brackets). Three items in the
+# default categories (0 and 1), one pair of equal word counts (P2P replace)
+# and two of unequal ones (refine); the category-5 item the default
+# categories skip.
+SWEEP_PIE = [("0_random_140/000000000000.jpg", "a [cat] sitting on the grass", "a [dog] sitting on the grass"),
+             ("0_random_140/000000000001.jpg", "a cat sitting on the grass", "a [white] cat sitting on the grass"),
+             ("1_change_object_80/100000000000.jpg", "a [dog] sitting on the grass",
+              "a [small] [cat] sitting on the grass"),
+             ("5_change_attribute_pose_40/500000000000.jpg", "a cat [sitting] on the grass",
+              "a cat [standing] on the grass")]
+# every word of both, whole tokens of the checkpoints' synthetic vocab
+CKPT_WORDS = " ".join(CKPT_PROMPTS + [p.replace("[", "").replace("]", "") for *_, s, t in SWEEP_PIE
+                                      for p in (s, t)]).split()
 CLIP_VOCAB_SIZE = 49408  # <|startoftext|> 49406, <|endoftext|> 49407, as in CLIP's vocab.json
 
 
@@ -1147,6 +1173,46 @@ def to_ldm_single_file(pipe):
             **{f"cond_stage_model.transformer.{k}": v for k, v in text.items()}}
 
 
+def to_open_clip(state, prefix):
+    """Inverse of the port's ``convert_open_clip_text``: transformers CLIP
+    keys -> OpenCLIP's (q/k/v fused into ``in_proj``, ``text_projection`` as
+    x @ W), for torch tensors or numpy arrays. Each layer's fused tensors are
+    made from that layer's alone."""
+    out = {f"{prefix}token_embedding.weight": state["text_model.embeddings.token_embedding.weight"],
+           f"{prefix}positional_embedding": state["text_model.embeddings.position_embedding.weight"],
+           f"{prefix}ln_final.weight": state["text_model.final_layer_norm.weight"],
+           f"{prefix}ln_final.bias": state["text_model.final_layer_norm.bias"]}
+    if "text_projection.weight" in state:
+        out[f"{prefix}text_projection"] = state["text_projection.weight"].T
+    cat = torch.cat if isinstance(state["text_model.final_layer_norm.weight"], torch.Tensor) else np.concatenate
+    i = 0
+    while f"text_model.encoder.layers.{i}.layer_norm1.weight" in state:
+        src, dst = f"text_model.encoder.layers.{i}", f"{prefix}transformer.resblocks.{i}"
+        for a, b in (("ln_1", "layer_norm1"), ("ln_2", "layer_norm2")):
+            for leaf in ("weight", "bias"):
+                out[f"{dst}.{a}.{leaf}"] = state[f"{src}.{b}.{leaf}"]
+        for leaf in ("weight", "bias"):
+            out[f"{dst}.attn.in_proj_{leaf}"] = cat([state[f"{src}.self_attn.{n}.{leaf}"]
+                                                     for n in ("q_proj", "k_proj", "v_proj")])
+            out[f"{dst}.attn.out_proj.{leaf}"] = state[f"{src}.self_attn.out_proj.{leaf}"]
+            out[f"{dst}.mlp.c_fc.{leaf}"] = state[f"{src}.mlp.fc1.{leaf}"]
+            out[f"{dst}.mlp.c_proj.{leaf}"] = state[f"{src}.mlp.fc2.{leaf}"]
+        i += 1
+    return out
+
+
+def to_ldm_single_file_xl(pipe):
+    """An SDXL base pipeline's weights under the LDM single-file keys: UNet,
+    VAE, the CLIP-L tower as ``conditioner.embedders.0.transformer.*`` with
+    its ``position_ids``, and bigG in OpenCLIP's layout as
+    ``conditioner.embedders.1.model.*``."""
+    text = dict(pipe.text_encoder.state_dict(), **clip_position_ids())
+    return {**to_ldm_unet(pipe.unet.state_dict(), pipe.unet.config),
+            **to_ldm_vae(pipe.vae.state_dict(), pipe.vae.config),
+            **{f"conditioner.embedders.0.transformer.{k}": v for k, v in text.items()},
+            **to_open_clip(pipe.text_encoder_2.state_dict(), "conditioner.embedders.1.model.")}
+
+
 def clip_position_ids():
     """The extra key real CLIP checkpoints carry (transformers' buffer)."""
     return {"text_model.embeddings.position_ids": torch.arange(77, dtype=torch.int64)[None]}
@@ -1185,6 +1251,36 @@ def write_tokenizer(directory, vocab, merges):
         f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
 
 
+def write_snapshot(directory, parts, vocab, merges, tokenizers=("tokenizer",)):
+    """An HF snapshot directory: each (subdirectory, module, file name) of
+    ``parts`` as fp16 safetensors (a text encoder with its
+    ``position_ids``), the synthetic BPE vocab in each of ``tokenizers``.
+    Returns the bytes of tensor data."""
+    import os
+
+    nbytes = 0
+    for sub, module, name in parts:
+        os.makedirs(os.path.join(directory, sub))
+        extra = clip_position_ids() if sub.startswith("text_encoder") else {}
+        nbytes += write_safetensors(dict(module.state_dict(), **extra),
+                                    os.path.join(directory, sub, name + ".safetensors"), torch.float16)
+    for sub in tokenizers:
+        write_tokenizer(os.path.join(directory, sub), vocab, merges)
+    return nbytes
+
+
+def write_single_file(state, directory, vocab, merges):
+    """One LDM single file ``directory/model.safetensors`` (fp16) with the
+    tokenizer beside it. Returns (path, bytes of tensor data)."""
+    import os
+
+    os.makedirs(directory)
+    path = os.path.join(directory, "model.safetensors")
+    nbytes = write_safetensors(state, path, torch.float16)
+    write_tokenizer(os.path.join(directory, "tokenizer"), vocab, merges)
+    return path, nbytes
+
+
 def write_sd_checkpoints(pipe, root, words):
     """Write ``pipe`` (SD1.x) as an HF snapshot directory ``root/sd`` (fp16
     weights under the ``.fp16`` names, the text encoder with its
@@ -1194,21 +1290,35 @@ def write_sd_checkpoints(pipe, root, words):
     each)."""
     import os
 
-    snapshot, single = os.path.join(root, "sd"), os.path.join(root, "single")
+    snapshot = os.path.join(root, "sd")
     vocab, merges = synthetic_clip_vocab(words)
-    nbytes = 0
-    for sub, module, name, extra in (("unet", pipe.unet, "diffusion_pytorch_model.fp16", {}),
-                                     ("vae", pipe.vae, "diffusion_pytorch_model.fp16", {}),
-                                     ("text_encoder", pipe.text_encoder, "model", clip_position_ids())):
-        os.makedirs(os.path.join(snapshot, sub))
-        nbytes += write_safetensors(dict(module.state_dict(), **extra),
-                                    os.path.join(snapshot, sub, name + ".safetensors"), torch.float16)
-    write_tokenizer(os.path.join(snapshot, "tokenizer"), vocab, merges)
-    os.makedirs(single)
-    path = os.path.join(single, "model.safetensors")
-    single_bytes = write_safetensors(to_ldm_single_file(pipe), path, torch.float16)
-    write_tokenizer(os.path.join(single, "tokenizer"), vocab, merges)
+    nbytes = write_snapshot(snapshot, (("unet", pipe.unet, "diffusion_pytorch_model.fp16"),
+                                       ("vae", pipe.vae, "diffusion_pytorch_model.fp16"),
+                                       ("text_encoder", pipe.text_encoder, "model")), vocab, merges)
+    path, single_bytes = write_single_file(to_ldm_single_file(pipe), os.path.join(root, "single"), vocab, merges)
     return snapshot, path, nbytes, single_bytes
+
+
+def write_xl_checkpoints(pipe, refiner_unet, root, words):
+    """Write ``pipe`` (SDXL base) as an HF snapshot directory ``root/xl``
+    (fp16: UNet, VAE, CLIP-L and bigG with its projection; ``tokenizer/``
+    and ``tokenizer_2/``), as one LDM single file
+    ``root/xl_single/model.safetensors`` with the tokenizer beside it, and
+    ``refiner_unet`` as the refiner's snapshot ``root/xl_refiner`` (its UNet:
+    the base's VAE and bigG serve it). Returns {name: (path, data bytes)}."""
+    import os
+
+    vocab, merges = synthetic_clip_vocab(words)
+    snapshot, refiner = os.path.join(root, "xl"), os.path.join(root, "xl_refiner")
+    nbytes = write_snapshot(snapshot, (("unet", pipe.unet, "diffusion_pytorch_model.fp16"),
+                                       ("vae", pipe.vae, "diffusion_pytorch_model.fp16"),
+                                       ("text_encoder", pipe.text_encoder, "model.fp16"),
+                                       ("text_encoder_2", pipe.text_encoder_2, "model.fp16")),
+                            vocab, merges, ("tokenizer", "tokenizer_2"))
+    single = write_single_file(to_ldm_single_file_xl(pipe), os.path.join(root, "xl_single"), vocab, merges)
+    refiner_bytes = write_snapshot(refiner, (("unet", refiner_unet, "diffusion_pytorch_model.fp16"),), vocab, merges,
+                                   ())
+    return {"snapshot": (snapshot, nbytes), "single_file": single, "refiner": (refiner, refiner_bytes)}
 
 
 def rss_gib():
@@ -1244,126 +1354,386 @@ def timed_loads(fn):
     return out, loads, seconds
 
 
-def phase_checkpoint_path(pipe):
-    """The reference's own entry points on a checkpoint, SD1.5 at full
-    width, bf16: ``pipe``'s weights (``random_pipeline("1.5", seed=0)``)
-    written as an HF snapshot and as an LDM single file, named through
-    ``sd_mapping.sd_maps`` ("1.5" and "ghostv2"), loaded by ``cli.load_pipe``
-    (timed per component; the two loads bitwise equal, and equal to the
-    weights through fp16), then ``shims`` p2p ``edit_real`` (DDIM inversion)
-    on a 512² PNG the phase writes and p2p ``edit_syn``, each with its
-    exact flash-forward launches, PNGs read back."""
+def scratch_base(need_gib, tag):
+    """A directory with ``need_gib`` GiB free for checkpoints: ``$TMPDIR``,
+    else the checkout's ignored ``_local/``; fails where neither has it."""
     import os
     import shutil
-    import tempfile
 
-    from image_editing_framework_torch import cli, sd_mapping, shims
-    from image_editing_framework_torch.utils.images import decode_png, encode_png
-
-    words = " ".join(CKPT_PROMPTS).split()
-    need = 5 * 2**30
+    need = need_gib * 2**30
     base = tempfile.gettempdir()
     if shutil.disk_usage(base).free < need:  # the checkout's ignored scratch directory instead
         base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_local")
         os.makedirs(base, exist_ok=True)
     usage = shutil.disk_usage(base)
-    emit("checkpoint_disk", directory=base, total_gib=usage.total / 2**30, free_gib=usage.free / 2**30)
+    emit(tag, directory=base, total_gib=usage.total / 2**30, free_gib=usage.free / 2**30, need_gib=need_gib)
     if usage.free < need:
-        raise AssertionError(f"{usage.free / 2**30:.1f} GiB free in {base}: the checkpoints need 5")
+        raise AssertionError(f"{usage.free / 2**30:.1f} GiB free in {base}: the checkpoints need {need_gib}")
+    return base
+
+
+def per_component(entries):
+    """``timed_loads``' loads as {module, GB, s, GB/s}."""
+    return [dict(module=m, gb=b / 1e9, s=s, gb_per_s=b / 1e9 / s) for m, b, s in entries]
+
+
+def measured_load(fn):
+    """(fn(), its figures): seconds, GB and GB/s of its ``load_params``
+    calls in all and per component, host RSS before, after and at the
+    process's peak, and the card's peak above what was allocated before."""
+    rss_before = rss_gib()[0]
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out, loads, seconds = timed_loads(fn)
+    rss_after, rss_peak = rss_gib()
+    nbytes = sum(b for _, b, _ in loads)
+    return out, dict(s=seconds, gb=nbytes / 1e9, gb_per_s=nbytes / 1e9 / seconds, components=per_component(loads),
+                     host_rss_before_gib=rss_before, host_rss_after_gib=rss_after, host_peak_rss_gib=rss_peak,
+                     device_load_peak_gib=(torch.cuda.max_memory_allocated() - before) / 2**30)
+
+
+def unequal_tensors(name, a, b, w):
+    """Keys of module ``name`` whose tensors differ between two loads ``a``
+    and ``b`` or from the written weights ``w`` through fp16 (the
+    checkpoints' dtype) in the loads' dtype; fails where the keys differ."""
+    a, b, w = (m.state_dict() for m in (a, b, w))
+    if a.keys() != b.keys() or a.keys() != w.keys():
+        raise AssertionError(f"{name}: the loads' keys differ from the module's")
+    return [f"{name}.{k}" for k in a if not (torch.equal(a[k], b[k]) and torch.equal(
+        a[k], w[k].to(torch.float16).to(a[k].dtype)))]
+
+
+def phase_checkpoint_path(pipe, tmp):
+    """The reference's own entry points on a checkpoint, SD1.5 at full
+    width, bf16: ``pipe``'s weights (``random_pipeline("1.5", seed=0)``)
+    written into ``tmp`` as an HF snapshot and as an LDM single file, named
+    through ``sd_mapping.sd_maps`` ("1.5" and "ghostv2"), loaded by
+    ``cli.load_pipe`` (timed per component; the two loads bitwise equal, and
+    equal to the weights through fp16), then ``shims`` p2p ``edit_real``
+    (DDIM inversion) on a 512² PNG the phase writes and p2p ``edit_syn``,
+    each with its exact flash-forward launches, PNGs read back. Returns the
+    launches and the snapshot directory (the sweep phase reads it)."""
+    import os
+    import shutil
+
+    from image_editing_framework_torch import cli, sd_mapping, shims
+    from image_editing_framework_torch.utils.images import decode_png, encode_png
+
+    words, side = CKPT_WORDS, MODELS["sd"][2]
     saved, cwd = dict(sd_mapping.sd_maps), os.getcwd()
-    with tempfile.TemporaryDirectory(prefix="ief_checkpoint_", dir=base) as tmp:
+    try:
+        t0 = time.perf_counter()
+        snapshot, single, snapshot_bytes, single_bytes = write_sd_checkpoints(pipe, tmp, words)
+        write_s = time.perf_counter() - t0
+        sd_mapping.sd_maps["1.5"], sd_mapping.sd_maps["ghostv2"] = snapshot, single
+        loaded, load = measured_load(lambda: cli.load_pipe("1.5"))
+        ghost, ghost_load = measured_load(lambda: cli.load_pipe("ghostv2"))
+        unequal = [k for name in ("unet", "vae", "text_encoder")
+                   for k in unequal_tensors(name, getattr(loaded, name), getattr(ghost, name), getattr(pipe, name))]
+        if unequal:
+            raise AssertionError(f"{len(unequal)} tensors differ between the snapshot load, the single-file "
+                                 f"load and the weights through fp16: {unequal[:5]}")
+        vocab, _ = synthetic_clip_vocab(words)
+        want_ids = [[vocab["<|startoftext|>"]] + [vocab[w + "</w>"] for w in p.split()] + [vocab["<|endoftext|>"]]
+                    for p in CKPT_PROMPTS]
+        del loaded, ghost
+        torch.cuda.empty_cache()
+
+        work = os.path.join(tmp, "work")
+        os.makedirs(work)
+        os.chdir(work)
+        source = (np.random.RandomState(3).rand(side, side, 3) * 255).astype(np.uint8)
+        with open("source_image.png", "wb") as f:
+            f.write(encode_png(source))
+        runs = {}
+        for entry, flags, forwards in (
+                ("edit_real", ["--inversion_type", "ddim", "--source_image", "source_image.png"], 2 * STEPS),
+                ("edit_syn", [], STEPS)):
+            shutil.rmtree("exp", ignore_errors=True)
+            pipes, real_load_pipe = [], cli.load_pipe
+            cli.load_pipe = lambda *a, **k: pipes.append(real_load_pipe(*a, **k)) or pipes[-1]
+            try:
+                reset_launch_counts()
+                _, loads_in_run, run_s = timed_loads(lambda: shims.main(
+                    ["p2p", entry, "--sd_version", "1.5", "--source_prompt", CKPT_PROMPTS[0],
+                     "--target_prompt", CKPT_PROMPTS[1], *flags]))
+                counts = launch_counts()
+            finally:
+                cli.load_pipe = real_load_pipe
+            expected = (SITES["sd"] * forwards, 0, 0)
+            if counts != expected:
+                raise AssertionError(f"p2p {entry} launched (forward, dQ, dK/dV) {counts} times, "
+                                     f"expected {expected}")
+            ids = [pipes[0].tokenizer.encode(p) for p in CKPT_PROMPTS]
+            if ids != want_ids:
+                raise AssertionError(f"token ids {ids}, the synthetic vocab defines {want_ids}")
+            names = ("source", "inversion", "edit") if entry == "edit_real" else ("source", "edit")
+            images = {}
+            for name in names:
+                with open(os.path.join("exp", name + ".png"), "rb") as f:
+                    images[name] = decode_png(f.read())
+                img = images[name]
+                if img is None or img.shape != (side, side, 3) or img.dtype != np.uint8 or img.std() == 0:
+                    raise AssertionError(f"exp/{name}.png of p2p {entry}: {None if img is None else img.shape}, "
+                                         f"constant or misshapen")
+            if entry == "edit_real" and not np.array_equal(images["source"], source):
+                raise AssertionError("exp/source.png differs from the source image")
+            run_load_s = sum(seconds for _, _, seconds in loads_in_run)
+            runs[entry] = dict(seconds=run_s, load_s=run_load_s, image_s=run_s - run_load_s,
+                               flash_launches=counts[0],
+                               image_means={k: float(v.mean()) for k, v in images.items()})
+            del pipes
+            torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+        sd_mapping.sd_maps.clear()
+        sd_mapping.sd_maps.update(saved)
+
+    emit("checkpoint_path", model="SD1.5 (random weights, seed 0, written fp16, loaded bf16)", resolution=side,
+         dtype="bfloat16", steps=STEPS, write_s=write_s, snapshot_gb=snapshot_bytes / 1e9,
+         single_file_gb=single_bytes / 1e9, load_s=load["s"], load_gb=load["gb"], load_gb_per_s=load["gb_per_s"],
+         load_components=load["components"], host_rss_before_gib=load["host_rss_before_gib"],
+         host_rss_after_gib=load["host_rss_after_gib"], host_peak_rss_gib=load["host_peak_rss_gib"],
+         device_load_peak_gib=load["device_load_peak_gib"], single_file_load_s=ghost_load["s"],
+         single_file_components=ghost_load["components"], loads_bitwise_equal=True,
+         edit_real=runs["edit_real"], edit_syn=runs["edit_syn"],
+         main_path_image_s=EMITTED["main_path"]["image_s"], token_ids=want_ids, card=card_line())
+    return runs["edit_real"]["flash_launches"] + runs["edit_syn"]["flash_launches"], snapshot
+
+
+def write_mini_pie(root, side, seed=0):
+    """A PIE-Bench directory of ``SWEEP_PIE``'s items: ``mapping_file.json``
+    and ``side``² seeded JPEGs (Pillow) under ``annotation_images``. Each
+    image is smooth noise (a seeded 8 x 8 grid resized up), so that it has
+    the large flat regions of a photo and survives JPEG."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    mapping = {}
+    for rel, source, target in SWEEP_PIE:
+        path = os.path.join(root, "annotation_images", rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        grid = Image.fromarray(rng.randint(0, 256, (8, 8, 3)).astype(np.uint8))
+        grid.resize((side, side), Image.BICUBIC).save(path, quality=90)
+        mapping[os.path.splitext(os.path.basename(rel))[0]] = {
+            "image_path": rel, "original_prompt": source, "editing_prompt": target,
+            "blended_words": "", "mask": ""}
+    with open(os.path.join(root, "mapping_file.json"), "w") as f:
+        json.dump(mapping, f, indent=1)
+    return root
+
+
+def sweep_launches(sites, items, steps, cached):
+    """Flash-forward launches of a P2P sweep over ``items`` images: per
+    image, ``steps`` UNet forwards of DDIM inversion (none where the
+    inversion comes from the cache) and ``steps`` of the edit, one launch
+    at each self-attention site of each."""
+    return sites * items * steps * (1 if cached else 2)
+
+
+# the keys of a sweep's stats file: every run; a run that edited images
+SWEEP_STATS_KEYS = {"method", "inversion_type", "inversion_type_effective", "images_done", "images_skipped",
+                    "wall_s", "mean_s_per_image", "steady_s_per_image", "device_peak_bytes", "host_peak_rss_mb"}
+SWEEP_DONE_KEYS = SWEEP_STATS_KEYS | {"recon_mse_mean", "recon_psnr_mean", "recon_ssim_mean", "p50_s_per_image",
+                                      "p95_s_per_image", "max_s_per_image"}
+
+
+def phase_sweep_path(root, snapshot):
+    """The reference's third entry point, the PIE-Bench sweep, on the SD1.5
+    snapshot ``phase_checkpoint_path`` wrote into ``root``, bf16, 512²: a
+    mini PIE (``SWEEP_PIE``, 512² JPEGs) and three runs of ``shims`` p2p
+    ``test``: (a) with ``--save_inversions``, (b) the same command again
+    (resume: every image skipped), (c) from (a)'s cache
+    (``--inversion_path``) into another ``--exp_path``. Each run's exact
+    flash-forward launches; its PNGs read back (512² uint8, not constant);
+    its event log strict JSON with finite reconstruction metrics; its stats
+    file's keys; (c)'s images against (a)'s (the cache gives back the same
+    bf16 latent, so within one level); seconds per image beside
+    ``main_path``'s."""
+    import os
+
+    from image_editing_framework_torch import sd_mapping, shims
+    from image_editing_framework_torch.data.pie import DEFAULT_CATEGORIES, PIE
+    from image_editing_framework_torch.utils.images import decode_png
+
+    side = MODELS["sd"][2]
+    pie = write_mini_pie(os.path.join(root, "PIE"), side)
+    work = [it.key for c in DEFAULT_CATEGORIES for it in PIE(pie, c).items]
+    skipped_by_category = [it.key for it in PIE(pie).items if it.key not in work]
+    if len(work) != 3 or len(skipped_by_category) != 1:
+        raise AssertionError(f"mini PIE: {work} in the default categories, {skipped_by_category} outside")
+    cache = os.path.join(root, "inversions")
+    exp = {"a": os.path.join(root, "exp_a"), "c": os.path.join(root, "exp_c")}
+    sites = SITES["sd"]
+    plan = (("a", exp["a"], ["--save_inversions", cache], 3, sweep_launches(sites, 3, STEPS, False)),
+            ("b", exp["a"], [], 0, 0),
+            ("c", exp["c"], ["--inversion_path", cache], 3, sweep_launches(sites, 3, STEPS, True)))
+    saved, runs, images = dict(sd_mapping.sd_maps), {}, {}
+    try:
+        sd_mapping.sd_maps["1.5"] = snapshot
+        for label, out, flags, done, expected in plan:
+            reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            _, loads, run_s = timed_loads(lambda: shims.main(
+                ["p2p", "test", "--sd_version", "1.5", "--dataset_path", pie, "--exp_path", out, *flags]))
+            counts = launch_counts()
+            if counts != (expected, 0, 0):
+                raise AssertionError(f"sweep run ({label}) launched (forward, dQ, dK/dV) {counts} times, expected "
+                                     f"({expected}, 0, 0)")
+            with open(os.path.join(out, "sweep_stats_p2p_0.json")) as f:
+                stats = json.load(f)
+            keys = SWEEP_DONE_KEYS if done else SWEEP_STATS_KEYS
+            if set(stats) != keys or (stats["images_done"], stats["images_skipped"]) != (done, 3 - done):
+                raise AssertionError(f"sweep run ({label}) stats {stats}: keys {sorted(set(stats) ^ keys)} differ, or "
+                                     f"not {done} done and {3 - done} skipped")
+
+            def reject(token):
+                raise AssertionError(f"non-strict JSON token {token!r} in the event log")
+
+            with open(os.path.join(out, "events_p2p_0.jsonl")) as f:
+                events = [json.loads(line, parse_constant=reject) for line in f]
+            if sorted(e["key"] for e in events) != sorted(work) or not all(
+                    math.isfinite(e[f"recon_{m}"]) for e in events for m in ("mse", "psnr", "ssim")):
+                raise AssertionError(f"sweep run ({label}) event log: {events}")
+            if os.path.exists(os.path.join(out, skipped_by_category[0])):
+                raise AssertionError(f"sweep run ({label}) edited {skipped_by_category[0]}, outside its categories")
+            for key in work:
+                for name in ("source", "inversion", "edit"):
+                    with open(os.path.join(out, key, name + ".png"), "rb") as f:
+                        img = images[label, key, name] = decode_png(f.read())
+                    if img is None or img.shape != (side, side, 3) or img.dtype != np.uint8 or img.std() == 0:
+                        raise AssertionError(f"sweep run ({label}) {key}/{name}.png: "
+                                             f"{None if img is None else img.shape}, constant or misshapen")
+            load_s = sum(seconds for _, _, seconds in loads)
+            runs[label] = dict(seconds=run_s, load_s=load_s, flash_launches=counts[0],
+                               event_lines=len(events), **stats)
+    finally:
+        sd_mapping.sd_maps.clear()
+        sd_mapping.sd_maps.update(saved)
+    levels = {name: max(int(np.abs(images["c", key, name].astype(np.int32)
+                                   - images["a", key, name].astype(np.int32)).max()) for key in work)
+              for name in ("source", "inversion", "edit")}
+    if levels["source"] != 0 or max(levels.values()) > 1:
+        raise AssertionError(f"the cache's images differ from the inversion's by {levels} levels")
+    emit("sweep_path", model="SD1.5 (random weights, seed 0, from the fp16 snapshot, bf16)", resolution=side,
+         dtype="bfloat16", steps=STEPS, items=work, runs=runs, cache_vs_inversion_max_levels=levels,
+         mean_s_per_image={k: r["mean_s_per_image"] for k, r in runs.items()},
+         p50_s_per_image={k: r.get("p50_s_per_image") for k, r in runs.items()},
+         main_path_image_s=EMITTED["main_path"]["image_s"], card=card_line())
+    return sum(r["flash_launches"] for r in runs.values()), {k: r["flash_launches"] for k, r in runs.items()}
+
+
+def phase_xl_checkpoint_path(pipe):
+    """SDXL base and refiner from checkpoints on the card, bf16: ``pipe``'s
+    weights (``random_pipeline("xl", seed=0)``) written fp16 as an HF
+    snapshot and as an LDM single file, and a seeded refiner UNet as the
+    refiner's snapshot (about 18.4 GB on disk); ``cli.load_pipe`` of
+    "xl-base" (the snapshot) and "animagineXL" (the single file), bitwise
+    equal to each other and to the weights through fp16; then "xl-refiner"
+    (the base a third time with the refiner attached), which must share the
+    base's VAE, bigG tower and tokenizer, and one refiner img2img on it;
+    then the p2p shim's ``edit_real`` with DDIM inversion at 1024², exact
+    launches. Each pipe is freed before the next load."""
+    import os
+
+    from image_editing_framework_torch import cli, sd_mapping, shims
+    from image_editing_framework_torch.methods.img2img import img2img
+    from image_editing_framework_torch.models import configs
+    from image_editing_framework_torch.models.unet import UNet2DCondition
+    from image_editing_framework_torch.pipelines import _build
+    from image_editing_framework_torch.utils.images import decode_png, encode_png
+
+    refiner_unet = _build(UNet2DCondition, configs.SDXL_REFINER_UNET, pipe.device, torch.bfloat16, 0)
+    saved, saved_refiner, cwd = dict(sd_mapping.sd_maps), sd_mapping.refiner_key, os.getcwd()
+    loads = {}
+    base = scratch_base(XL_DISK_GIB, "xl_checkpoint_disk")
+    with tempfile.TemporaryDirectory(prefix="ief_xl_checkpoint_", dir=base) as tmp:
         try:
             t0 = time.perf_counter()
-            snapshot, single, snapshot_bytes, single_bytes = write_sd_checkpoints(pipe, tmp, words)
+            written = write_xl_checkpoints(pipe, refiner_unet, tmp, CKPT_WORDS)
             write_s = time.perf_counter() - t0
-            sd_mapping.sd_maps["1.5"], sd_mapping.sd_maps["ghostv2"] = snapshot, single
-            rss_before = rss_gib()[0]
-            torch.cuda.reset_peak_memory_stats()
-            before = torch.cuda.memory_allocated()
-            loaded, loads, load_s = timed_loads(lambda: cli.load_pipe("1.5"))
-            rss_after, rss_peak = rss_gib()
-            load_peak = (torch.cuda.max_memory_allocated() - before) / 2**30
-            ghost, ghost_loads, ghost_s = timed_loads(lambda: cli.load_pipe("ghostv2"))
-            unequal = []
-            for name in ("unet", "vae", "text_encoder"):
-                a, b, w = (getattr(p, name).state_dict() for p in (loaded, ghost, pipe))
-                if a.keys() != b.keys() or a.keys() != w.keys():
-                    raise AssertionError(f"{name}: the loads' keys differ from the module's")
-                unequal += [f"{name}.{k}" for k in a if not (torch.equal(a[k], b[k]) and torch.equal(
-                    a[k], w[k].to(torch.float16).to(torch.bfloat16)))]
-            if unequal:
-                raise AssertionError(f"{len(unequal)} tensors differ between the snapshot load, the single-file "
-                                     f"load and the weights through fp16: {unequal[:5]}")
-            vocab, _ = synthetic_clip_vocab(words)
-            want_ids = [[vocab["<|startoftext|>"]] + [vocab[w + "</w>"] for w in p.split()] + [vocab["<|endoftext|>"]]
-                        for p in CKPT_PROMPTS]
+            sd_mapping.sd_maps["xl-base"] = sd_mapping.sd_maps["xl-refiner"] = written["snapshot"][0]
+            sd_mapping.sd_maps["animagineXL"] = written["single_file"][0]
+            sd_mapping.refiner_key = written["refiner"][0]
+            loaded, loads["xl-base"] = measured_load(lambda: cli.load_pipe("xl-base"))
+            ghost, loads["animagineXL"] = measured_load(lambda: cli.load_pipe("animagineXL"))
+            bad = [k for name in ("unet", "vae", "text_encoder", "text_encoder_2")
+                   for k in unequal_tensors(name, getattr(loaded, name), getattr(ghost, name), getattr(pipe, name))]
+            if bad:
+                raise AssertionError(f"{len(bad)} tensors differ between the snapshot load, the single-file load and "
+                                     f"the weights through fp16: {bad[:5]}")
             del loaded, ghost
+            torch.cuda.empty_cache()
+
+            both, loads["xl-refiner"] = measured_load(lambda: cli.load_pipe("xl-refiner"))
+            refiner = both.refiner
+            shared = {name: getattr(refiner, name) is getattr(both, attr) for name, attr in (
+                ("vae", "vae"), ("text_encoder_2", "text_encoder_2"), ("tokenizer_2", "tokenizer_2"),
+                ("scheduler", "scheduler"))}
+            if not all(shared.values()) or not refiner.is_refiner:
+                raise AssertionError(f"the refiner shares {shared} with the base")
+            bad = unequal_tensors("refiner.unet", refiner.unet, refiner.unet, refiner_unet) + unequal_tensors(
+                "unet", both.unet, both.unet, pipe.unet)
+            if bad:
+                raise AssertionError(f"{len(bad)} tensors of the xl-refiner load differ from the weights: {bad[:5]}")
+            side = MODELS["xl"][2]
+            image = (np.random.RandomState(2).rand(side, side, 3) * 255).astype(np.uint8)
+            ref_sites = refiner.unet.config.num_transformer_blocks
+            reset_launch_counts()
+            refined, refine_s = timed(lambda: img2img(refiner, image, CKPT_PROMPTS[0], strength=0.3,
+                                                      generator=torch.Generator(device=pipe.device).manual_seed(0)))
+            refine_counts = launch_counts()
+            forwards = STEPS - int(STEPS * (1.0 - 0.3))
+            if refine_counts != (ref_sites * forwards, 0, 0):
+                raise AssertionError(f"the loaded refiner launched (forward, dQ, dK/dV) {refine_counts} times, "
+                                     f"expected {ref_sites} x {forwards} forward")
+            if refined.shape != (1, side, side, 3) or refined.dtype != np.uint8 or refined.std() == 0:
+                raise AssertionError(f"refiner output {refined.shape} {refined.dtype} constant or misshapen")
+            del both, refiner, refiner_unet
             torch.cuda.empty_cache()
 
             work = os.path.join(tmp, "work")
             os.makedirs(work)
             os.chdir(work)
-            source = (np.random.RandomState(3).rand(512, 512, 3) * 255).astype(np.uint8)
+            source = (np.random.RandomState(3).rand(side, side, 3) * 255).astype(np.uint8)
             with open("source_image.png", "wb") as f:
                 f.write(encode_png(source))
-            runs = {}
-            for entry, flags, forwards in (
-                    ("edit_real", ["--inversion_type", "ddim", "--source_image", "source_image.png"], 2 * STEPS),
-                    ("edit_syn", [], STEPS)):
-                shutil.rmtree("exp", ignore_errors=True)
-                pipes, real_load_pipe = [], cli.load_pipe
-                cli.load_pipe = lambda *a, **k: pipes.append(real_load_pipe(*a, **k)) or pipes[-1]
-                try:
-                    reset_launch_counts()
-                    _, loads_in_run, run_s = timed_loads(lambda: shims.main(
-                        ["p2p", entry, "--sd_version", "1.5", "--source_prompt", CKPT_PROMPTS[0],
-                         "--target_prompt", CKPT_PROMPTS[1], *flags]))
-                    counts = launch_counts()
-                finally:
-                    cli.load_pipe = real_load_pipe
-                expected = (SITES["sd"] * forwards, 0, 0)
-                if counts != expected:
-                    raise AssertionError(f"p2p {entry} launched (forward, dQ, dK/dV) {counts} times, "
-                                         f"expected {expected}")
-                ids = [pipes[0].tokenizer.encode(p) for p in CKPT_PROMPTS]
-                if ids != want_ids:
-                    raise AssertionError(f"token ids {ids}, the synthetic vocab defines {want_ids}")
-                names = ("source", "inversion", "edit") if entry == "edit_real" else ("source", "edit")
-                images = {}
-                for name in names:
-                    with open(os.path.join("exp", name + ".png"), "rb") as f:
-                        images[name] = decode_png(f.read())
-                    img = images[name]
-                    if img is None or img.shape != (512, 512, 3) or img.dtype != np.uint8 or img.std() == 0:
-                        raise AssertionError(f"exp/{name}.png of p2p {entry}: {None if img is None else img.shape}, "
-                                             f"constant or misshapen")
-                if entry == "edit_real" and not np.array_equal(images["source"], source):
+            reset_launch_counts()
+            _, run_loads, run_s = timed_loads(lambda: shims.main(
+                ["p2p", "edit_real", "--sd_version", "xl-base", "--inversion_type", "ddim", "--source_image",
+                 "source_image.png", "--source_prompt", CKPT_PROMPTS[0], "--target_prompt", CKPT_PROMPTS[1]]))
+            counts = launch_counts()
+            expected = (SITES["xl"] * 2 * STEPS, 0, 0)
+            if counts != expected:
+                raise AssertionError(f"p2p edit_real on xl-base launched (forward, dQ, dK/dV) {counts} times, "
+                                     f"expected {expected}")
+            means = {}
+            for name in ("source", "inversion", "edit"):
+                with open(os.path.join("exp", name + ".png"), "rb") as f:
+                    img = decode_png(f.read())
+                if img is None or img.shape != (side, side, 3) or img.dtype != np.uint8 or img.std() == 0:
+                    raise AssertionError(f"exp/{name}.png of the xl-base edit_real: "
+                                         f"{None if img is None else img.shape}, constant or misshapen")
+                if name == "source" and not np.array_equal(img, source):
                     raise AssertionError("exp/source.png differs from the source image")
-                run_load_s = sum(seconds for _, _, seconds in loads_in_run)
-                runs[entry] = dict(seconds=run_s, load_s=run_load_s, image_s=run_s - run_load_s,
-                                   flash_launches=counts[0],
-                                   image_means={k: float(v.mean()) for k, v in images.items()})
-                del pipes
-                torch.cuda.empty_cache()
+                means[name] = float(img.mean())
+            run_load_s = sum(seconds for _, _, seconds in run_loads)
         finally:
             os.chdir(cwd)
             sd_mapping.sd_maps.clear()
             sd_mapping.sd_maps.update(saved)
-
-    def per_component(entries):
-        return [dict(module=m, gb=b / 1e9, s=s, gb_per_s=b / 1e9 / s) for m, b, s in entries]
-
-    load_bytes = sum(b for _, b, _ in loads)
-    emit("checkpoint_path", model="SD1.5 (random weights, seed 0, written fp16, loaded bf16)", resolution=512,
-         dtype="bfloat16", steps=STEPS, write_s=write_s, snapshot_gb=snapshot_bytes / 1e9,
-         single_file_gb=single_bytes / 1e9, load_s=load_s, load_gb=load_bytes / 1e9,
-         load_gb_per_s=load_bytes / 1e9 / load_s, load_components=per_component(loads),
-         host_rss_before_gib=rss_before, host_rss_after_gib=rss_after, host_peak_rss_gib=rss_peak,
-         device_load_peak_gib=load_peak, single_file_load_s=ghost_s,
-         single_file_components=per_component(ghost_loads), loads_bitwise_equal=True,
-         edit_real=runs["edit_real"], edit_syn=runs["edit_syn"],
-         main_path_image_s=EMITTED["main_path"]["image_s"], token_ids=want_ids, card=card_line())
-    return runs["edit_real"]["flash_launches"] + runs["edit_syn"]["flash_launches"]
+            sd_mapping.refiner_key = saved_refiner
+    emit("xl_checkpoint_path", model="SDXL base and refiner (random weights, seed 0, written fp16, loaded bf16)",
+         resolution=side, dtype="bfloat16", steps=STEPS, write_s=write_s,
+         written_gb={name: nbytes / 1e9 for name, (_, nbytes) in written.items()},
+         write_gb_per_s=sum(nbytes for _, nbytes in written.values()) / 1e9 / write_s, loads=loads,
+         loads_bitwise_equal=True, refiner_shares=shared, refine_s=refine_s, refine_flash_launches=refine_counts[0],
+         edit_real=dict(seconds=run_s, load_s=run_load_s, image_s=run_s - run_load_s, flash_launches=counts[0],
+                        image_means=means),
+         xl_main_path_image_s=EMITTED["xl_main_path"]["image_s"], card=card_line())
+    return counts[0] + refine_counts[0]
 
 
 def phase_nti_path(model, pipe):
@@ -1759,7 +2129,12 @@ def main() -> int:
     for model, prefix in (("sd", ""), ("xl", "xl_")):
         launches[model], unet_ms[model], profile_args = run(prefix + "main_path", phase_main_path, model)
         if model == "sd":
-            launches["checkpoint"] = run("checkpoint_path", phase_checkpoint_path, profile_args[0])
+            # the SD1.5 snapshot serves the checkpoint phase and the sweep
+            with tempfile.TemporaryDirectory(prefix="ief_checkpoint_", dir=scratch_base(5, "checkpoint_disk")) as tmp:
+                launches["checkpoint"], snapshot = run("checkpoint_path", phase_checkpoint_path, profile_args[0], tmp)
+                launches["sweep"], sweep_runs = run("sweep_path", phase_sweep_path, tmp, snapshot)
+        else:
+            launches["xl_checkpoint"] = run("xl_checkpoint_path", phase_xl_checkpoint_path, profile_args[0])
         nti_counts, nti = run(prefix + "nti_path", phase_nti_path, model, profile_args[0])
         bwd_launches[model] = nti_counts[1:]
         run(prefix + "profile", phase_profile, model, *profile_args)
@@ -1837,12 +2212,14 @@ def main() -> int:
         "replaces": f"{tpu}:76", "also_replaces": f"{tpu}:205",
         "launches": sum(launches.values()),
         "launches_by_path": {"main_path": launches["sd"], "checkpoint_path": launches["checkpoint"],
-                             "xl_main_path": launches["xl"],
+                             "sweep_path": launches["sweep"], "xl_main_path": launches["xl"],
+                             "xl_checkpoint_path": launches["xl_checkpoint"],
                              "masactrl_path": launches["masactrl"], "xl_masactrl_path": launches["xl_masactrl"],
                              "pnp_path": launches["pnp"], "xl_pnp_path": launches["xl_pnp"],
                              "p2z_path": launches["p2z"], "xl_p2z_path": launches["xl_p2z"],
                              "refiner": launches["refiner"]},
         "p2z_launches_by_run": p2z_runs,
+        "sweep_launches_by_run": sweep_runs,
         "masactrl_launches_by_run": masa_runs,
         "max_abs_err": worst[torch.bfloat16], "max_abs_err_f32": worst[torch.float32],
         **at(sums["sd"]), "work": "the 16 self-attention sites of one SD1.5 512² UNet forward at CFG batch 4, bf16",

@@ -8,8 +8,11 @@ with ``nvcc`` at first use). Ported so far: Prompt-to-Prompt, MasaCtrl,
 Plug-and-Play and pix2pix-zero, DDIM and null-text inversion, the SD1.5,
 SD2.1 and SDXL pipelines (with seeded random weights, or loaded from
 HF-snapshot directories and single-file LDM checkpoints by
-``load_pipeline``, with the CLIP BPE tokenizer), and the reference's
-``edit_real`` / ``edit_syn`` entry points (``cli.py``, ``shims.py``).
+``load_pipeline``, with the CLIP BPE tokenizer), the reference's
+``edit_real`` / ``edit_syn`` entry points (``cli.py``, ``shims.py``), and
+its PIE-Bench sweep one image at a time (``test`` / ``cli.test_main``:
+``data/pie.py``, the inversion cache, ``eval/metrics.py`` MSE / PSNR / SSIM,
+``eval/sweep.py``).
 
 Importing the package imports nothing heavy: the top-level API below is
 resolved on first access, as the JAX package's is.
@@ -29,6 +32,7 @@ _API = {
     "masactrl_edit": ("image_editing_framework_torch.methods.masactrl", "masactrl_edit"),
     "pnp_edit": ("image_editing_framework_torch.methods.pnp", "pnp_edit"),
     "p2z_edit": ("image_editing_framework_torch.methods.p2z", "p2z_edit"),
+    "run_sweep": ("image_editing_framework_torch.eval.sweep", "run_sweep"),
 }
 
 

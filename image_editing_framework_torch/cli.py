@@ -9,8 +9,9 @@ reference's flags (``common_parser``), load the pipeline named by
 for a real image, with the reference's learning-rate schedules
 (``nti_config_for``); ``run_method`` dispatches one edit to P2P, MasaCtrl,
 PnP or pix2pix-zero, with the MasaCtrl command-line options merged by
-``_masactrl_cli_kwargs``. ``shims.py`` holds each method's defaults. The
-PIE-Bench sweep (``test_main``) waits for the sweep's port.
+``_masactrl_cli_kwargs``; ``test_main`` runs the PIE-Bench sweep
+(``eval/sweep.py run_sweep``) with the reference test.py's flags.
+``shims.py`` holds each method's defaults.
 """
 
 from __future__ import annotations
@@ -226,3 +227,33 @@ def edit_syn_main(method: str, argv=None, method_kwargs: Optional[dict] = None,
                                    None, method_kwargs)
     save_img(src_img, os.path.join(OUT_PATH, "source.png"))
     save_img(edit_img, os.path.join(OUT_PATH, "edit.png"))
+
+
+def test_main(method: str, argv=None, method_kwargs: Optional[dict] = None):
+    """PIE-Bench sweep (reference: */test.py): load ``--sd_version`` on the
+    card, then ``run_sweep`` over ``--dataset_path`` into ``--exp_path``
+    (categories 0-4 and 6-9, per image invert -> edit -> save, resumable,
+    sharded by ``--shard_index`` / ``--shard_count``)."""
+    p = argparse.ArgumentParser(f"{method} test")
+    p.add_argument("--sd_version", type=str, default="1.5")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--dataset_path", type=str, default="./PIE")
+    p.add_argument("--exp_path", type=str, default="./test_exp")
+    p.add_argument("--inversion_type", type=str, default="ddim")
+    p.add_argument("--resume", action="store_true", default=True)
+    p.add_argument("--shard_index", type=int, default=0)
+    p.add_argument("--shard_count", type=int, default=1)
+    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--inversion_path", type=str, default=None)
+    p.add_argument("--save_inversions", type=str, default=None)
+    args = p.parse_args(argv)
+    pipe = load_pipe(args.sd_version)
+
+    from image_editing_framework_torch.eval.sweep import run_sweep
+
+    return run_sweep(
+        pipe, method, args.dataset_path, args.exp_path, inversion_type=args.inversion_type, seed=args.seed,
+        method_kwargs=method_kwargs, resume=args.resume, shard_index=args.shard_index,
+        shard_count=args.shard_count, batch_size=args.batch_size, inversion_path=args.inversion_path,
+        save_inversions=args.save_inversions,
+    )

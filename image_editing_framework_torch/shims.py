@@ -1,14 +1,17 @@
 """The per-method editing scripts of the reference, as one table.
 
 Counterpart of the ``p2p/``, ``masactrl/``, ``pnp/`` and ``pix2pix-zero/``
-``edit_real.py`` / ``edit_syn.py`` scripts (which stay the JAX package's):
-each entry holds what its script passes to ``cli.edit_real_main`` or
-``cli.edit_syn_main``: the method, its defaults and its ``method_kwargs``.
+``edit_real.py`` / ``edit_syn.py`` / ``test.py`` scripts (which stay the JAX
+package's): each entry holds what its script passes to ``cli.edit_real_main``,
+``cli.edit_syn_main`` or ``cli.test_main``: the method, its defaults and its
+``method_kwargs``.
 
-Run from any directory (the images go to ``./exp``)::
+Run from any directory (the edits' images go to ``./exp``, the PIE-Bench
+sweep's to ``--exp_path``)::
 
     python -m image_editing_framework_torch.shims p2p edit_real --sd_version 1.5 --source_image x.png
     python -m image_editing_framework_torch.shims pnp edit_syn --seed 7
+    python -m image_editing_framework_torch.shims p2p test --sd_version 1.5 --dataset_path PIE --exp_path out
 
 after pointing ``image_editing_framework_torch/sd_mapping.py`` at a local
 checkpoint.
@@ -49,20 +52,26 @@ SHIMS: Dict[Tuple[str, str], Tuple[str, dict]] = {
     ("p2z", "edit_syn"): ("p2z", dict(
         default_source="A photo of a cool boy with blue trousers",
         default_target="A photo of a cool boy with yellow trousers")),
+    # the PIE-Bench sweeps: each test.py calls test_main(method) alone
+    # (reference: p2p/test.py, masactrl/test.py, pnp/test.py, pix2pix-zero/test.py)
+    ("p2p", "test"): ("p2p", {}),
+    ("masactrl", "test"): ("masactrl", {}),
+    ("pnp", "test"): ("pnp", {}),
+    ("p2z", "test"): ("p2z", {}),
 }
+ENTRIES = {"edit_real": "edit_real_main", "edit_syn": "edit_syn_main", "test": "test_main"}
 
 
 def main(argv=None) -> None:
-    """``<p2p|masactrl|pnp|p2z> <edit_real|edit_syn> [the entry's flags]``."""
+    """``<p2p|masactrl|pnp|p2z> <edit_real|edit_syn|test> [the entry's flags]``."""
     from image_editing_framework_torch import cli
 
     argv = list(sys.argv[1:] if argv is None else argv)
     if len(argv) < 2 or tuple(argv[:2]) not in SHIMS:
         raise SystemExit(f"usage: python -m image_editing_framework_torch.shims "
-                         f"<{'|'.join(sorted({k[0] for k in SHIMS}))}> <edit_real|edit_syn> [flags]")
+                         f"<{'|'.join(sorted({k[0] for k in SHIMS}))}> <{'|'.join(ENTRIES)}> [flags]")
     method, kwargs = SHIMS[argv[0], argv[1]]
-    entry = cli.edit_real_main if argv[1] == "edit_real" else cli.edit_syn_main
-    entry(method, argv=argv[2:], **kwargs)
+    getattr(cli, ENTRIES[argv[1]])(method, argv=argv[2:], **kwargs)
 
 
 if __name__ == "__main__":

@@ -63,8 +63,9 @@ def test_chip_smoke_wires_every_phase_into_main():
     smoke = _load_script()
     source = inspect.getsource(smoke.main)
     for phase in ("phase_device", "phase_kernels", "phase_bwd_kernels", "phase_probe", "phase_tiny",
-                  "phase_main_path", "phase_checkpoint_path", "phase_nti_path", "phase_profile",
-                  "phase_masactrl_path", "phase_pnp_path", "phase_p2z_path", "phase_refiner"):
+                  "phase_main_path", "phase_checkpoint_path", "phase_sweep_path", "phase_xl_checkpoint_path",
+                  "phase_nti_path", "phase_profile", "phase_masactrl_path", "phase_pnp_path", "phase_p2z_path",
+                  "phase_refiner"):
         assert callable(getattr(smoke, phase)) and phase in source, phase
     assert '("sd", ""), ("xl", "xl_")' in source  # both models go through main, NTI and profile
     for kernel in ("flash_fwd", "flash_bwd_", "mma_probe"):
@@ -78,6 +79,11 @@ def test_chip_smoke_wires_every_phase_into_main():
     # the checkpoint phase runs on SD1.5 between its main path and its NTI path, and its launches count
     assert source.index("phase_checkpoint_path") < source.index("phase_nti_path")
     assert '"checkpoint_path": launches["checkpoint"]' in source
+    # the sweep reads the SD1.5 snapshot after the checkpoint phase, in the same directory; the SDXL
+    # checkpoints follow the SDXL main path; both phases' launches count
+    assert source.index("phase_checkpoint_path") < source.index("phase_sweep_path") < source.index("phase_nti_path")
+    assert source.index("phase_main_path") < source.index("phase_xl_checkpoint_path") < source.index("phase_nti_path")
+    assert '"sweep_path": launches["sweep"]' in source and '"xl_checkpoint_path": launches["xl_checkpoint"]' in source
     # the biased shapes: union doubles the gated sites' keys, mask keeps them
     assert sum(calls for v, *_, calls in smoke.BIAS_SHAPES["sd"] if v == "union") == 6
     assert sum(calls for v, *_, calls in smoke.BIAS_SHAPES["xl"] if v == "union") == 16
@@ -330,3 +336,87 @@ def test_synthetic_vocab_is_clip_shaped():
     for prompt in smoke.CKPT_PROMPTS:
         assert tok.encode(prompt) == [49406] + [vocab[w + "</w>"] for w in prompt.split()] + [49407]
     assert {"cat</w>", "dog</w>"} <= set(vocab)
+
+
+def test_mini_pie_writer(tmp_path):
+    """The sweep phase's mini PIE at a small size: three items in the
+    default categories (one P2P replace pair, two refine), the category-5
+    item outside them, brackets stripped, JPEGs at the asked size that are
+    not flat, and every prompt word one token of the checkpoints' vocab."""
+    from PIL import Image
+
+    from image_editing_framework_torch.data.pie import DEFAULT_CATEGORIES, PIE
+    from image_editing_framework_torch.eval.sweep import _auto_p2p_config
+    from image_editing_framework_torch.models.tokenizer import CLIPTokenizer
+    from image_editing_framework_torch.utils.images import load_image
+
+    smoke = _load_script()
+    root = smoke.write_mini_pie(str(tmp_path / "PIE"), 48)
+    work = [it for c in DEFAULT_CATEGORIES for it in PIE(root, c).items]
+    assert len(work) == 3 and len(PIE(root)) == 4 and len(PIE(root, 5)) == 1
+    assert sorted(_auto_p2p_config(it.source_prompt, it.target_prompt).edit_type for it in work) == \
+        ["refine", "refine", "replace"]
+    vocab, merges = smoke.synthetic_clip_vocab(smoke.CKPT_WORDS)
+    tok = CLIPTokenizer(vocab, merges)
+    for it in PIE(root).items:
+        with Image.open(it.image_path) as im:
+            assert im.format == "JPEG" and im.size == (48, 48)
+        img = load_image(it.image_path, 48, 48)
+        assert img.shape == (48, 48, 3) and img.std() > 5
+        for prompt in (it.source_prompt, it.target_prompt):
+            assert "[" not in prompt
+            assert tok.encode(prompt) == [49406] + [vocab[w + "</w>"] for w in prompt.split()] + [49407]
+
+
+def test_sweep_launch_arithmetic():
+    """The sweep phase's exact launch counts: per SD1.5 512² image 50 DDIM
+    inversion forwards and 50 edit forwards at 16 sites (800 each from the
+    cache), three images; the SDXL ``edit_real`` 2 x 50 forwards at 70."""
+    smoke = _load_script()
+    assert smoke.sweep_launches(smoke.SITES["sd"], 3, smoke.STEPS, cached=False) == 4800
+    assert smoke.sweep_launches(smoke.SITES["sd"], 3, smoke.STEPS, cached=True) == 2400
+    assert smoke.sweep_launches(smoke.SITES["sd"], 1, smoke.STEPS, cached=False) == 1600
+    assert smoke.SITES["xl"] * 2 * smoke.STEPS == 7000
+    assert smoke.SWEEP_STATS_KEYS < smoke.SWEEP_DONE_KEYS
+
+
+def test_xl_checkpoint_writers_round_trip_on_the_cpu(tmp_path):
+    """The SDXL phase's writers at the tiny SDXL size: the snapshot, the
+    LDM single file (bigG through ``to_open_clip``) and the refiner's UNet
+    load through the port's ``load_pipeline(..., device="cpu")`` as
+    "xl-base", "animagineXL" and "xl-refiner", every tensor equal to the
+    written module's through fp16; the refiner shares the base's VAE, bigG
+    tower and tokenizer."""
+    import dataclasses
+
+    from image_editing_framework_torch.models import configs, registry
+    from image_editing_framework_torch.models.unet import UNet2DCondition
+    from image_editing_framework_torch.pipelines import _build, tiny_pipeline
+
+    smoke = _load_script()
+    pipe = tiny_pipeline(num_steps=4, model_type="xl", device="cpu")
+    refiner_cfg = dataclasses.replace(configs.TINY_REFINER_UNET, cross_attention_dim=16)
+    refiner_unet = _build(UNet2DCondition, refiner_cfg, torch.device("cpu"), torch.float32, 5)
+    written = smoke.write_xl_checkpoints(pipe, refiner_unet, str(tmp_path), smoke.CKPT_WORDS)
+    assert set(written) == {"snapshot", "single_file", "refiner"}
+    spec = registry.VersionSpec("xl", pipe.unet.config, pipe.text_encoder.config, pipe.text_encoder_2.config,
+                                vae=pipe.vae.config)
+    refiner_spec = registry.VersionSpec("xl", refiner_cfg, pipe.text_encoder_2.config, vae=pipe.vae.config)
+
+    def through_fp16(module, got):
+        want = module.state_dict()
+        assert set(got.state_dict()) == set(want)
+        for k, v in got.state_dict().items():
+            assert torch.equal(v, want[k].to(torch.float16).to(torch.float32)), k
+
+    for version, path in (("xl-base", written["snapshot"][0]), ("animagineXL", written["single_file"][0])):
+        loaded = registry.load_pipeline(version, 4, path=path, spec=spec, device="cpu")
+        for name in ("unet", "vae", "text_encoder", "text_encoder_2"):
+            through_fp16(getattr(pipe, name), getattr(loaded, name))
+        assert loaded.tokenizer.encode("a white cat") == loaded.tokenizer_2.encode("a white cat")
+    both = registry.load_pipeline("xl-refiner", 4, path=written["snapshot"][0], spec=spec,
+                                  refiner_path=written["refiner"][0], refiner_spec=refiner_spec, device="cpu")
+    through_fp16(refiner_unet, both.refiner.unet)
+    assert both.refiner.vae is both.vae and both.refiner.text_encoder_2 is both.text_encoder_2
+    assert both.refiner.tokenizer_2 is both.tokenizer_2 and both.refiner.is_refiner
+    assert written["refiner"][1] == sum(t.numel() * 2 for t in refiner_unet.state_dict().values())

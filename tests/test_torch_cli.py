@@ -8,9 +8,12 @@ to that dtype, 4 steps, 32² as ``tests/test_cli.py`` runs it). Limit:
 ``exp/inversion.png`` and ``exp/edit.png`` within 2 levels per pixel of the
 JAX package's (f32 on both sides, rounded to uint8 at the end; ``source.png``
 equal). ``edit_syn_main``, the MasaCtrl flags and null-text inversion run on
-the tiny pipeline, as ``tests/test_cli.py`` runs them. Each of the eight JAX
-shims, run with ``runpy`` and its entry patched to record the call, passes
-what the port's table holds."""
+the tiny pipeline, as ``tests/test_cli.py`` runs them. Each of the twelve
+JAX shims (``edit_real``, ``edit_syn`` and the PIE-Bench ``test`` of each
+method), run with ``runpy`` and its entry patched to record the call,
+passes what the port's table holds. ``test_main`` parses JAX's flags into
+the same ``run_sweep`` call, and runs the sweep through the p2p shim on the
+tiny pipeline and the mini PIE of ``tests/test_sweep.py``."""
 
 import dataclasses
 import os
@@ -31,6 +34,7 @@ from image_editing_framework_torch.utils.images import decode_png
 from image_editing_framework_tpu import sd_mapping as jax_sd_mapping
 from image_editing_framework_tpu.core import config as jax_config
 from image_editing_framework_tpu.models import registry as jax_registry
+from test_sweep import mini_pie  # noqa: F401  (the JAX tests' mini PIE fixture)
 from test_torch_registry import PROMPTS, ckpts  # noqa: F401  (the fake checkpoints fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -123,7 +127,7 @@ def test_edit_real_main_null_text_from_a_jpeg(tiny_env):
 
 def _record_jax_shim(monkeypatch, directory, entry):
     calls = []
-    for name in ("edit_real_main", "edit_syn_main"):
+    for name in ("edit_real_main", "edit_syn_main", "test_main"):
         monkeypatch.setattr(jax_cli, name, lambda method, **kw: calls.append((method, kw)))
     monkeypatch.syspath_prepend(os.path.join(ROOT, directory))
     monkeypatch.setattr(sys, "argv", [entry + ".py"])
@@ -142,7 +146,7 @@ def _fields(kwargs):
 
 @pytest.mark.parametrize("directory,name", [("p2p", "p2p"), ("masactrl", "masactrl"), ("pnp", "pnp"),
                                             ("pix2pix-zero", "p2z")])
-@pytest.mark.parametrize("entry", ["edit_real", "edit_syn"])
+@pytest.mark.parametrize("entry", ["edit_real", "edit_syn", "test"])
 def test_shim_table_matches_the_jax_shims(monkeypatch, directory, name, entry):
     method, kwargs = _record_jax_shim(monkeypatch, directory, entry)
     port_method, port_kwargs = shims.SHIMS[name, entry]
@@ -154,11 +158,15 @@ def test_shims_main_dispatches(monkeypatch):
     calls = []
     monkeypatch.setattr(cli, "edit_real_main", lambda method, argv=None, **kw: calls.append(("real", method, argv, kw)))
     monkeypatch.setattr(cli, "edit_syn_main", lambda method, argv=None, **kw: calls.append(("syn", method, argv, kw)))
+    monkeypatch.setattr(cli, "test_main", lambda method, argv=None, **kw: calls.append(("test", method, argv, kw)))
     shims.main(["pnp", "edit_real", "--seed", "3"])
     shims.main(["p2z", "edit_syn"])
+    for method in ("p2p", "masactrl", "pnp", "p2z"):
+        shims.main([method, "test", "--exp_path", "out"])
     assert calls == [("real", "pnp", ["--seed", "3"], shims.SHIMS["pnp", "edit_real"][1]),
-                     ("syn", "p2z", [], shims.SHIMS["p2z", "edit_syn"][1])]
-    for argv in ([], ["p2p"], ["pix2pix-zero", "edit_real"], ["p2p", "test"]):
+                     ("syn", "p2z", [], shims.SHIMS["p2z", "edit_syn"][1])] + [
+        ("test", method, ["--exp_path", "out"], {}) for method in ("p2p", "masactrl", "pnp", "p2z")]
+    for argv in ([], ["p2p"], ["pix2pix-zero", "edit_real"], ["pix2pix-zero", "test"], ["p2p", "sweep"]):
         with pytest.raises(SystemExit, match="usage"):
             shims.main(argv)
 
@@ -167,3 +175,52 @@ def test_parser_matches_jax():
     for kw in (dict(real=True, method="masactrl"), dict(real=False, default_seed=8888), dict(real=True)):
         port, ref = cli.common_parser("x", **kw), jax_cli.common_parser("x", **kw)
         assert vars(port.parse_args([])) == vars(ref.parse_args([]))
+
+
+TEST_ARGVS = [[], ["--sd_version", "xl-base", "--seed", "3", "--dataset_path", "d", "--exp_path", "e",
+                   "--inversion_type", "null-text", "--resume", "--shard_index", "1", "--shard_count", "4",
+                   "--batch_size", "1", "--inversion_path", "i", "--save_inversions", "s"]]
+
+
+@pytest.mark.parametrize("argv", TEST_ARGVS)
+def test_test_main_flags_match_jax(monkeypatch, argv):
+    """``test_main`` parses the JAX entry's flags, with its defaults, into
+    the same ``load_pipe`` and ``run_sweep`` calls (the JAX call's
+    ``use_flash`` aside: the port has none)."""
+    import image_editing_framework_tpu.eval.sweep as jax_sweep
+    from image_editing_framework_torch.eval import sweep as port_sweep
+
+    calls = {}
+    for name, module, sweep in (("port", cli, port_sweep), ("jax", jax_cli, jax_sweep)):
+        monkeypatch.setattr(module, "load_pipe", lambda version, name=name: calls.setdefault(name, [version]) and name)
+        monkeypatch.setattr(sweep, "run_sweep", lambda *a, name=name, **kw: calls[name].append((a, kw)))
+    cli.test_main("pnp", argv=list(argv), method_kwargs={"x": 1})
+    jax_cli.test_main("pnp", argv=list(argv), method_kwargs={"x": 1})
+    port_call, jax_call = calls["port"], calls["jax"]
+    assert port_call[0] == jax_call[0] == ("xl-base" if argv else "1.5")
+    assert port_call[1][0] == ("port", "pnp") + jax_call[1][0][2:] and jax_call[1][0][:2] == ("jax", "pnp")
+    assert port_call[1][1] == jax_call[1][1] and port_call[1][1]["method_kwargs"] == {"x": 1}
+
+
+def test_test_main_runs_the_sweep_through_the_shim(tiny_env, mini_pie, monkeypatch):  # noqa: F811
+    """``shims p2p test`` on the tiny pipeline over the mini PIE: its four
+    items (categories 0 and 6, both in the default categories), their
+    images, the event log and the stats; run again, it resumes."""
+    import json
+
+    from image_editing_framework_torch.eval import sweep as port_sweep
+
+    real = port_sweep.run_sweep
+    monkeypatch.setattr(port_sweep, "run_sweep", lambda *a, **kw: real(*a, resolution=32, **kw))
+    shims.main(["p2p", "test", "--dataset_path", mini_pie, "--exp_path", "out"])
+    with open(os.path.join("out", "sweep_stats_p2p_0.json")) as f:
+        stats = json.load(f)
+    assert stats["images_done"] == 4 and stats["images_skipped"] == 0 and stats["method"] == "p2p"
+    for key in ("0_random/img_0", "0_random/img_1", "0_random/img_2", "6_other/img"):
+        for name in ("source", "inversion", "edit"):
+            assert _png(os.path.join("out", key, name + ".png")).shape == (32, 32, 3)
+    with open(os.path.join("out", "events_p2p_0.jsonl")) as f:
+        assert len(f.readlines()) == 4
+    shims.main(["p2p", "test", "--dataset_path", mini_pie, "--exp_path", "out"])
+    with open(os.path.join("out", "sweep_stats_p2p_0.json")) as f:
+        assert json.load(f)["images_skipped"] == 4

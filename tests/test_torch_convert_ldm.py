@@ -31,32 +31,6 @@ UNETS = {"sd15": "SD15_UNET", "sd21": "SD21_UNET", "sdxl": "SDXL_UNET", "refiner
          "tiny": "TINY_UNET", "tiny_xl": "TINY_XL_UNET", "tiny_refiner": "TINY_REFINER_UNET"}
 
 
-def to_open_clip(state, prefix):
-    """Inverse of ``convert_open_clip_text``: transformers CLIP keys ->
-    OpenCLIP's (q/k/v fused into ``in_proj``, ``text_projection`` as x @ W)."""
-    out = {f"{prefix}token_embedding.weight": state["text_model.embeddings.token_embedding.weight"],
-           f"{prefix}positional_embedding": state["text_model.embeddings.position_embedding.weight"],
-           f"{prefix}ln_final.weight": state["text_model.final_layer_norm.weight"],
-           f"{prefix}ln_final.bias": state["text_model.final_layer_norm.bias"]}
-    if "text_projection.weight" in state:
-        out[f"{prefix}text_projection"] = state["text_projection.weight"].T
-    cat = torch.cat if isinstance(state["text_model.final_layer_norm.weight"], torch.Tensor) else np.concatenate
-    i = 0
-    while f"text_model.encoder.layers.{i}.layer_norm1.weight" in state:
-        src, dst = f"text_model.encoder.layers.{i}", f"{prefix}transformer.resblocks.{i}"
-        for a, b in (("ln_1", "layer_norm1"), ("ln_2", "layer_norm2")):
-            for leaf in ("weight", "bias"):
-                out[f"{dst}.{a}.{leaf}"] = state[f"{src}.{b}.{leaf}"]
-        for leaf in ("weight", "bias"):
-            out[f"{dst}.attn.in_proj_{leaf}"] = cat([state[f"{src}.self_attn.{n}.{leaf}"]
-                                                     for n in ("q_proj", "k_proj", "v_proj")])
-            out[f"{dst}.attn.out_proj.{leaf}"] = state[f"{src}.self_attn.out_proj.{leaf}"]
-            out[f"{dst}.mlp.c_fc.{leaf}"] = state[f"{src}.mlp.fc1.{leaf}"]
-            out[f"{dst}.mlp.c_proj.{leaf}"] = state[f"{src}.mlp.fc2.{leaf}"]
-        i += 1
-    return out
-
-
 def _as_torch(d):
     return {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
 
@@ -119,11 +93,11 @@ def test_convert_text_matches_jax(tiny_dicts):
     sd1 = {f"cond_stage_model.transformer.{k}": v for k, v in clip.items()}
     sd1["model.diffusion_model.out.0.weight"] = np.ones(4, np.float32)
     _same(port.convert_ldm_text(_as_torch(sd1)), ref.convert_ldm_text(sd1))
-    sd2 = to_open_clip(clip, "cond_stage_model.model.")
+    sd2 = chip_smoke().to_open_clip(clip, "cond_stage_model.model.")
     got, want = port.convert_ldm_text(_as_torch(sd2)), ref.convert_ldm_text(sd2)
     _same(got, want)
     _same(got, clip)  # the inverse above undone, text_projection included
-    xl = to_open_clip(clip, "conditioner.embedders.1.model.")
+    xl = chip_smoke().to_open_clip(clip, "conditioner.embedders.1.model.")
     _same(port.convert_open_clip_text(_as_torch(xl), "conditioner.embedders.1.model."),
           ref.convert_open_clip_text(xl, "conditioner.embedders.1.model."))
     assert port.convert_open_clip_text(_as_torch(xl), "cond_stage_model.model.") == {}
@@ -145,7 +119,7 @@ def test_convert_single_file_matches_jax(tiny_dicts, tmp_path):
     ucfg_j, ucfg_p = jax_configs.TINY_XL_UNET, port_configs.TINY_XL_UNET
     state = {**to_ldm_unet(tiny_dicts["xl"], ucfg_j), **to_ldm_vae(tiny_dicts["vae"], TINY_VAE),
              **{f"conditioner.embedders.0.transformer.{k}": v for k, v in tiny_dicts["clip"].items()},
-             **to_open_clip(tiny_dicts["clip"], "conditioner.embedders.1.model.")}
+             **chip_smoke().to_open_clip(tiny_dicts["clip"], "conditioner.embedders.1.model.")}
     path = str(tmp_path / "xl.safetensors")
     save_file({k: np.ascontiguousarray(v) for k, v in state.items()}, path)
     got, want = (port.convert_single_file_xl(path, ucfg_p, vcfg_p),
@@ -186,4 +160,4 @@ def test_full_width_vae_and_text_keys_round_trip_on_meta():
     for cfg, prefix in ((OPEN_CLIP_VIT_H, "cond_stage_model.model."), (OPEN_CLIP_BIG_G,
                                                                        "conditioner.embedders.1.model.")):
         tower = _meta(CLIPTextModel, cfg)
-        _covers(port.convert_open_clip_text(to_open_clip(tower.state_dict(), prefix), prefix), tower)
+        _covers(port.convert_open_clip_text(chip_smoke().to_open_clip(tower.state_dict(), prefix), prefix), tower)

@@ -20,7 +20,7 @@ from image_editing_framework_torch.ops import _cuda
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "image_editing_framework_torch")
 API = ("SDPipeline", "ddim_invert", "null_text_inversion", "p2p_edit", "masactrl_edit", "pnp_edit", "p2z_edit",
-       "random_pipeline", "tiny_pipeline", "load_pipeline", "CLIPTokenizer")
+       "random_pipeline", "tiny_pipeline", "load_pipeline", "CLIPTokenizer", "run_sweep")
 
 
 def _pyproject():
@@ -34,7 +34,7 @@ def test_find_packages_sees_the_port():
     include = _pyproject()["tool"]["setuptools"]["packages"]["find"]["include"]
     found = set(setuptools.find_packages(where=ROOT, include=include))
     subpackages = {f"image_editing_framework_torch.{name}" for name in
-                   ("core", "inversion", "methods", "models", "ops", "tools", "utils")}
+                   ("core", "data", "eval", "inversion", "methods", "models", "ops", "tools", "utils")}
     assert {"image_editing_framework_torch"} | subpackages <= found
     assert "image_editing_framework_tpu" in found  # the JAX package still installs
 
@@ -60,7 +60,7 @@ def test_lazy_api_resolves_without_jax():
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'image_editing_framework_tpu',"
         " 'regex', 'safetensors', 'PIL'))\n"
         "assert not bad, bad\n"
-        "for name in ('run_sweep', 'serve'):\n"
+        "for name in ('CLIPScore', 'serve'):\n"
         "    try:\n"
         "        getattr(port, name)\n"
         "    except AttributeError:\n"
@@ -73,6 +73,7 @@ def test_lazy_api_resolves_without_jax():
 
 
 def test_api_names_are_the_modules_functions():
+    from image_editing_framework_torch.eval import sweep
     from image_editing_framework_torch.methods import p2z
     from image_editing_framework_torch.methods.masactrl import masactrl_edit
     from image_editing_framework_torch.methods.pnp import pnp_edit
@@ -82,8 +83,9 @@ def test_api_names_are_the_modules_functions():
     assert port.masactrl_edit is masactrl_edit and port.pnp_edit is pnp_edit
     assert port.p2z_edit is p2z.p2z_edit
     assert port.load_pipeline is load_pipeline and port.CLIPTokenizer is CLIPTokenizer
+    assert port.run_sweep is sweep.run_sweep
     assert set(API) <= set(dir(port))
-    for name in ("run_sweep", "serve"):
+    for name in ("CLIPScore", "serve"):
         with pytest.raises(AttributeError):
             getattr(port, name)
 

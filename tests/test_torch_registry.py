@@ -29,7 +29,6 @@ from image_editing_framework_tpu.models.clip import TINY_CLIP, CLIPTextModel
 from image_editing_framework_tpu.models.unet import UNet2DCondition
 from image_editing_framework_tpu.models.vae import TINY_VAE, AutoencoderKL
 from test_convert_ldm import to_ldm_unet, to_ldm_vae
-from test_torch_convert_ldm import to_open_clip
 from torch_port_helpers import chip_smoke, export_random, n, t
 
 ATOL = 1e-4
@@ -116,7 +115,7 @@ def ckpts(tmp_path_factory):
                                         **to_ldm_vae(arrays["vae"], TINY_VAE),
                                         **{f"conditioner.embedders.0.transformer.{k}": v
                                            for k, v in arrays["text1"].items()},
-                                        **to_open_clip(arrays["text2"], "conditioner.embedders.1.model.")}, "model")
+                                        **smoke.to_open_clip(arrays["text2"], "conditioner.embedders.1.model.")}, "model")
     smoke.write_tokenizer(os.path.join(os.path.dirname(single_xl), "tokenizer"), vocab, merges)
     return dict(sd=sd, xl=xl, refiner=refiner, single_sd=single_sd, single_xl=single_xl,
                 sd_spec=_specs("sd", "TINY_UNET", sd_text), xl_spec=_specs("xl", "TINY_XL_UNET", t1, t2),
