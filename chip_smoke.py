@@ -25,6 +25,10 @@ Phases, one line of output each (any failure exits non-zero):
      biased shapes' library time; the forward
      wrapper's host µs per call at a batch-1 SDXL site; the backward at
      NTI's batch-1 shapes and at pix2pix-zero's CFG batch 2 at every site;
+     at the batched paths' batches: the forward at each group's G and
+     CFG-4 x G (2, 3, 8, 12, 16) at every SD1.5 site shape, and bitwise
+     equal rows out of a batch of 16 equal rows; the backward at batched
+     NTI's 3 and batched p2z's CFG-2 x 2 = 4 at every SD1.5 site, held only;
      probe: the tile-shape probe kernel against its plain version for
      every layout and head dim, every block's value, then its timed table
      through the tool's entry point;
@@ -33,7 +37,12 @@ Phases, one line of output each (any failure exits non-zero):
      kernels' plain versions); the same for the tiny SDXL pipeline, its NTI
      with and without the checkpointed UNet; on both, MasaCtrl (mutual,
      union, mask, auto mask, direction), PnP and pix2pix-zero, whose guided
-     steps never synchronise;
+     steps never synchronise; the batched editors (``eval/batched.py``, a
+     group of 2: P2P replace and refine in one group, MasaCtrl mutual and
+     union, PnP, p2z with recorded and recomputed references, direct
+     inversion, NTI embeddings; batched NTI of a group of 3 that stops at
+     different inner iterations; XL P2P) on the card against the CPU and
+     against each image alone on the card;
   4. main path: SD1.5 at full width (random weights from a seed), 512²,
      bf16 — image2latent, 50-step DDIM inversion, 50-step P2P replace edit
      with LocalBlend at CFG batch 4, decode — with the launch counts of
@@ -48,12 +57,20 @@ Phases, one line of output each (any failure exits non-zero):
      sweep path: the PIE-Bench sweep (``shims`` p2p ``test``) from that
      snapshot over a mini PIE of 512² JPEGs (three items in the default
      categories, one outside): with ``--save_inversions``, again (resume),
-     and from the cache (``--inversion_path``), exact launch counts, the
-     PNGs, event log and stats read back, the cache's edits held to the
-     first run's;
+     and from the cache (``--inversion_path``), and batched
+     (``--batch_size 3``: one group, the launches of one image), exact launch
+     counts, the PNGs, event log and stats read back, the cache's edits held
+     to the first run's;
+     serve path: the editing service (``serve.py EditService.poll_once``)
+     on the same snapshot, loaded by ``cli.load_pipe``: a spool of four P2P
+     real-image requests (one group of 4), two MasaCtrl ones (a group of 2),
+     a synthesis request, a bad method and a torn file, polled until
+     drained; the first request again alone; each group's exact launches
+     (those of one image), the answers, the groups, the PNGs, the torn
+     file's rejection;
   5. nti path: the same model and edit through null-text inversion
-     (``cli.invert(..., "null-text")``, 50 steps of up to 10 Adam
-     iterations, each a UNet forward and backward), the edit taking the
+     (``cli.invert(..., "null-text")``, 50 steps of ``SD_INNER_STEPS`` (2)
+     Adam iterations, each a UNet forward and backward), the edit taking the
      per-step embeddings; launch counts of every kernel read around it;
   6. profile: one UNet forward at the edit's and the inversion's batch under
      torch.profiler: device busy time, idle share, launches, top kernels;
@@ -125,6 +142,13 @@ BIAS_SHAPES = {
 # UNet's input latent at CFG batch 2: the gradient flows through every site
 # of PATH_SHAPES, the first included
 P2Z_BATCH = 2
+# the batched editors' groups (eval/batched.py folds G images into the batch):
+# the service's group of 4 (CFG batch 16), the batched sweep's group of 3,
+# batched NTI's group of 3 (batch 3), batched p2z's group of 2 (CFG batch 4)
+SERVE_GROUP = 4
+SWEEP_GROUP = 3
+NTI_GROUP = 3
+P2Z_GROUP = 2
 SITES = {model: sum(shape[3] for shape in shapes) for model, shapes in PATH_SHAPES.items()}
 GRAD_SITES = {model: sum(shape[3] for shape in shapes) for model, shapes in GRAD_SHAPES.items()}
 SOURCES = ("flash_fwd", "flash_bwd", "mma_probe")
@@ -132,6 +156,9 @@ HEADS = 8  # of the edge cases
 # NTI inner iterations per step on the XL path (the default is 10); 1 since
 # the p2z paths joined the script, to keep it within half its time limit
 XL_INNER_STEPS = 1
+# ... on the SD1.5 path: 2 since the serve path joined (random weights never
+# stop early, so J = 2 · 50)
+SD_INNER_STEPS = 2
 PROBE_RTOL = 1e-6  # probe kernel vs plain version, relative to the sum of the terms' magnitudes
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 PEAK_F32 = 67e12  # CUDA-core f32 FLOP/s
@@ -424,6 +451,16 @@ def hold_forward(out, ref, out_lse=None, ref_lse=None):
     return err, tol, lse_err
 
 
+def group_batches():
+    """The flash forward's batches on the batched paths (eval/batched.py
+    folds G images into the batch): each group's inversion at G and its
+    CFG-4 edit at 4G, for the service's groups of SERVE_GROUP and
+    len(MASA_GROUP) and the batched sweep's of SWEEP_GROUP; less the batches
+    1 and 4 that the earlier paths give."""
+    groups = (SERVE_GROUP, len(MASA_GROUP), SWEEP_GROUP)
+    return sorted({m * g for g in groups for m in (1, 4)} - {1, 4})
+
+
 def phase_kernels(gen):
     """Kernel vs plain version; times at the paths' shapes. Returns the
     worst errors, per model the sums over the sites of one CFG-batch UNet
@@ -537,6 +574,22 @@ def phase_kernels(gen):
     for model, shapes in BIAS_SHAPES.items():
         for shape in shapes:
             check_biased(model, *shape)
+    # the batched paths' groups at every SD1.5 site shape (1 and 4 are held above)
+    for b in group_batches():
+        for n, d, h, _ in PATH_SHAPES["sd"]:
+            check(torch.bfloat16, b, h, n, n, d, model="sd")
+    # a batch whose rows are all equal gives bitwise-equal rows: the kernel's
+    # result does not depend on a row's place in the batch
+    b = max(group_batches())
+    for n, d, h, _ in PATH_SHAPES["sd"]:
+        q, k, v = (split_heads(torch.randn(1, n, h * d, device="cuda", dtype=torch.bfloat16, generator=gen)
+                               .expand(b, -1, -1).contiguous(), h) for _ in range(3))
+        out = fa.flash_attention(q, k, v)
+        unequal = [i for i in range(1, b) if not torch.equal(out[i], out[0])]
+        if unequal:
+            raise AssertionError(f"flash forward at batch {b}, {n} tokens, d = {d}: rows {unequal} of equal inputs "
+                                 f"differ from row 0 by up to {(out.float() - out[:1].float()).abs().max().item()}")
+        emit("rows_equal", kernel="flash_fwd", dtype="bfloat16", shape=[b, h, n, n, d], equal=True)
     for part in list(sums.values()) + [p for per in bias_sums.values() for p in per.values()]:
         part["bound_ms"], part["bound_by"] = bound_ms(part["flops"], part["bytes"], torch.bfloat16)
     for model, shapes in BIAS_SHAPES.items():
@@ -681,6 +734,11 @@ def phase_bwd_kernels(gen):
         bias = torch.zeros(2, 512, device="cuda")
         bias[0] = float("-inf")  # every logit -inf: zero gradients
         check(dtype, 2, HEADS, 64, 512, 160, bias=bias, zero_batch=0)
+    # the batched gradients' batches: batched NTI's group of NTI_GROUP at
+    # every site its gradient reaches, batched p2z's CFG-2 x P2Z_GROUP at all
+    for batch, shapes in ((NTI_GROUP, GRAD_SHAPES["sd"]), (P2Z_BATCH * P2Z_GROUP, PATH_SHAPES["sd"])):
+        for n, d, h, _ in shapes:
+            check(torch.bfloat16, batch, h, n, n, d, model="sd")
     for part in list(sums.values()) + list(p2z_sums.values()):
         for kernel in part:
             part[kernel]["bound_ms"], part[kernel]["bound_by"] = bound_ms(
@@ -884,6 +942,102 @@ def controls_sync_free():
     return True
 
 
+TINY_PAIRS = [["a cat sitting on the grass", "a dog sitting on the grass"],  # replace
+              ["a cat sitting on the grass", "a white cat sitting on the grass"]]  # refine
+TINY_NTI_SCALES = (0.05, 0.2, 1.0)  # of the group's start latents: the three images' losses spread
+TINY_NTI_EPSILON = 0.05  # between them at step 0: the images stop after 3, 3 and 1 inner iterations
+TINY_NTI_STOPS = [3, 3, 1]
+
+
+def tiny_batched(pipe, model_type, alone=True):
+    """The batched editors (``eval/batched.py``) on the tiny pipeline, a
+    group of 2, and the same images one at a time on the same device. SD:
+    P2P (replace and refine in one group), MasaCtrl mutual and union, PnP,
+    pix2pix-zero with recorded and with recomputed references, P2P on a
+    batched DDIM inversion with each image's trajectory replayed (direct),
+    batched null-text inversion of a group of 3 whose images stop at
+    different inner iterations, and P2P on its embeddings; XL: P2P.
+    Returns ({name: (the group's final latents (G, 2, h, w, 4), each image
+    alone's), on the CPU}, {"nti": (the group's embeddings, each image
+    alone's)}, the group's NTI stops); each image alone's is None without
+    ``alone``."""
+    from image_editing_framework_torch.core.config import MasaCtrlConfig, NTIConfig, P2PConfig, P2ZConfig, \
+        SamplerConfig
+    from image_editing_framework_torch.eval import batched
+    from image_editing_framework_torch.inversion import nti
+    from image_editing_framework_torch.methods.masactrl import masactrl_edit
+    from image_editing_framework_torch.methods.p2p import p2p_edit
+    from image_editing_framework_torch.methods.p2z import p2z_edit
+    from image_editing_framework_torch.methods.pnp import pnp_edit
+
+    xl = model_type == "xl"
+    # the serial editors take the XL time ids from the sampler, the batched
+    # ones from the latents (16 · 8)
+    sampler = SamplerConfig(height=128, width=128) if xl else SamplerConfig(height=32, width=32)
+    rng = np.random.RandomState(7)
+    lats = torch.from_numpy(rng.randn(2, 1, 16, 16, 4).astype(np.float32)).to(pipe.device)
+    cfgs = [P2PConfig(edit_type="replace"), P2PConfig(edit_type="refine")]
+    masa = MasaCtrlConfig(start_step=1, start_layer=4 if xl else 2)
+    finals, decode = [], pipe.latent2image
+
+    def recording_decode(lat, **kw):
+        finals.append(lat.cpu())
+        return decode(lat, **kw)
+
+    def run(group, singles):
+        """(the group's final latents, each image's or None)."""
+        finals.clear()
+        group()
+        out = finals[0].reshape((2, 2) + tuple(finals[0].shape[1:]))
+        if not alone:
+            return out, None
+        finals.clear()
+        for i in range(2):
+            singles(i)
+        return out, torch.cat(finals).reshape(out.shape)
+
+    edits = {"p2p": (lambda: batched.p2p_edit_batch(pipe, TINY_PAIRS, lats, cfgs),
+                     lambda i: p2p_edit(pipe, TINY_PAIRS[i], lats[i], cfgs[i], sampler))}
+    if not xl:
+        inverted, trajs = batched.ddim_invert_batch(pipe, lats * 0.1, [p[0] for p in TINY_PAIRS],
+                                                    return_trajectory=True)
+        for mode in ("mutual", "union"):
+            c = dataclasses.replace(masa, mode=mode)
+            edits["masactrl_" + mode] = (lambda c=c: batched.masactrl_edit_batch(pipe, TINY_PAIRS, lats, c),
+                                         lambda i, c=c: masactrl_edit(pipe, TINY_PAIRS[i], lats[i], c, sampler))
+        edits["pnp"] = (lambda: batched.pnp_edit_batch(pipe, TINY_PAIRS, lats),
+                        lambda i: pnp_edit(pipe, TINY_PAIRS[i], lats[i], sampler=sampler))
+        for name, c in (("p2z", P2ZConfig()), ("p2z_recompute", P2ZConfig(recompute_refs=True))):
+            edits[name] = (lambda c=c: batched.p2z_edit_batch(pipe, TINY_PAIRS, lats, c),
+                           lambda i, c=c: p2z_edit(pipe, TINY_PAIRS[i], lats[i], c, sampler))
+        edits["direct"] = (
+            lambda: batched.p2p_edit_batch(pipe, TINY_PAIRS, inverted, cfgs, source_replays=trajs),
+            lambda i: p2p_edit(pipe, TINY_PAIRS[i], inverted[i], cfgs[i], sampler, source_replay=trajs[i]))
+    out, seqs, stops = {}, {}, None
+    pipe.latent2image = recording_decode
+    try:
+        for name, (group, singles) in edits.items():
+            out[name] = run(group, singles)
+        if not xl:
+            prompts = [p[0] for p in TINY_PAIRS] + [TINY_PAIRS[1][1]]
+            scales = torch.tensor(TINY_NTI_SCALES, device=pipe.device)[:, None, None, None, None]
+            lats3 = torch.from_numpy(np.random.RandomState(2).randn(3, 1, 16, 16, 4).astype(np.float32))
+            inv3, trajs3 = batched.ddim_invert_batch(pipe, lats3.to(pipe.device) * scales, prompts,
+                                                     return_trajectory=True)
+            cfg = NTIConfig(num_inner_steps=3, epsilon=TINY_NTI_EPSILON)
+            useq, stops = batched.nti_batch(pipe, trajs3, prompts, cfg, return_stops=True)
+            context, _ = pipe.encode_prompts(prompts)
+            seqs["nti"] = (useq.cpu(), torch.stack([
+                nti.null_text_inversion(pipe, trajs3[i], torch.stack([context[i], context[3 + i]]), cfg)
+                for i in range(3)]).cpu() if alone else None)
+            out["nti_edit"] = run(
+                lambda: batched.p2p_edit_batch(pipe, TINY_PAIRS, inv3[:2], cfgs, uncond_seqs=useq[:2]),
+                lambda i: p2p_edit(pipe, TINY_PAIRS[i], inv3[i], cfgs[i], sampler, uncond_seq=useq[i]))
+    finally:
+        del pipe.latent2image
+    return out, seqs, stops
+
+
 def phase_tiny():
     """Tiny pipelines on the card (f32 kernels, head dims 16 and 32) against
     the same weights on the CPU (plain versions). SD: invert + P2P edit with
@@ -891,7 +1045,9 @@ def phase_tiny():
     edit with its embeddings. SDXL: invert + P2P edit, and XL null-text
     inversion with and without the checkpointed UNet. Both: MasaCtrl
     (mutual, union, mask, auto mask, direction) and PnP (``tiny_edits``);
-    their steps never synchronise (``controls_sync_free``)."""
+    their steps never synchronise (``controls_sync_free``); the batched
+    editors (``tiny_batched``) against the CPU and against each image
+    alone on the card."""
     from image_editing_framework_torch.core.config import NTIConfig, P2PConfig, SamplerConfig
     from image_editing_framework_torch.inversion.ddim import ddim_invert
     from image_editing_framework_torch.inversion.nti import null_text_inversion
@@ -945,9 +1101,24 @@ def phase_tiny():
         if len(edit_errs) != 8 or not all(e < 1e-3 for e in edit_errs.values()) or not margin_ok:
             raise AssertionError(f"tiny {model_type} MasaCtrl/PnP/p2z on the card disagree with the CPU: "
                                  f"{edit_errs}, auto-mask margin {gap}")
+        # the batched editors: card against CPU, and the group against each
+        # image alone on the card (both backward kernels run batched here:
+        # batched NTI at batch 3, batched p2z at CFG batch 4)
+        (cpu_b, cpu_seqs, cpu_stops), (gpu_b, gpu_seqs, gpu_stops) = (
+            tiny_batched(cpu, model_type, alone=False), tiny_batched(gpu, model_type))
+        batch_errs = {k: (cpu_b[k][0] - gpu_b[k][0]).abs().max().item() for k in cpu_b}
+        batch_errs.update({k: (cpu_seqs[k][0] - gpu_seqs[k][0]).abs().max().item() for k in cpu_seqs})
+        alone_errs = {k: (v[0] - v[1]).abs().max().item() for k, v in list(gpu_b.items()) + list(gpu_seqs.items())}
+        stops_ok = cpu_stops == gpu_stops and (model_type == "xl" or gpu_stops[0] == TINY_NTI_STOPS)
+        if len(batch_errs) != (9 if model_type == "sd" else 1) or not stops_ok or not all(
+                e < 1e-3 for e in list(batch_errs.values()) + list(alone_errs.values())):
+            raise AssertionError(f"tiny {model_type} batched editors: card vs CPU {batch_errs}, group vs each image "
+                                 f"alone on the card {alone_errs}, NTI stops card {gpu_stops} CPU {cpu_stops}")
         fields = dict(max_abs_err=errs[0], nti_edit_max_abs_err=errs[1], nti_embedding_max_abs_err=errs[2], tol=1e-3,
                       masactrl_pnp_max_abs_err=edit_errs, masactrl_pnp_target_max_abs_err=target_errs,
-                      auto_mask_margin=gap, p2z_max_abs_err=edit_errs["p2z"], p2z_sync_free=p2z_sync)
+                      auto_mask_margin=gap, p2z_max_abs_err=edit_errs["p2z"], p2z_sync_free=p2z_sync,
+                      batched_max_abs_err=batch_errs, batched_vs_alone_max_abs_err=alone_errs,
+                      nti_batch_stops=gpu_stops)
         if model_type == "xl":
             fields.update(nti_embedding_remat_max_abs_err=errs[3],
                           remat_bitwise_on_card=bool(torch.equal(results[1][2], results[1][3])))
@@ -1536,8 +1707,8 @@ def sweep_launches(sites, items, steps, cached):
 # the keys of a sweep's stats file: every run; a run that edited images
 SWEEP_STATS_KEYS = {"method", "inversion_type", "inversion_type_effective", "images_done", "images_skipped",
                     "wall_s", "mean_s_per_image", "steady_s_per_image", "device_peak_bytes", "host_peak_rss_mb"}
-SWEEP_DONE_KEYS = SWEEP_STATS_KEYS | {"recon_mse_mean", "recon_psnr_mean", "recon_ssim_mean", "p50_s_per_image",
-                                      "p95_s_per_image", "max_s_per_image"}
+SWEEP_TAIL_KEYS = {"p50_s_per_image", "p95_s_per_image", "max_s_per_image"}
+SWEEP_DONE_KEYS = SWEEP_STATS_KEYS | {"recon_mse_mean", "recon_psnr_mean", "recon_ssim_mean"} | SWEEP_TAIL_KEYS
 
 
 def phase_sweep_path(root, snapshot):
@@ -1546,12 +1717,14 @@ def phase_sweep_path(root, snapshot):
     mini PIE (``SWEEP_PIE``, 512² JPEGs) and three runs of ``shims`` p2p
     ``test``: (a) with ``--save_inversions``, (b) the same command again
     (resume: every image skipped), (c) from (a)'s cache
-    (``--inversion_path``) into another ``--exp_path``. Each run's exact
-    flash-forward launches; its PNGs read back (512² uint8, not constant);
+    (``--inversion_path``) into another ``--exp_path``, (d) the batched
+    sweep (``--batch_size 3``: the three items as one group) into a third.
+    Each run's exact flash-forward launches (a group launches what one image
+    launches); its PNGs read back (512² uint8, not constant);
     its event log strict JSON with finite reconstruction metrics; its stats
     file's keys; (c)'s images against (a)'s (the cache gives back the same
-    bf16 latent, so within one level); seconds per image beside
-    ``main_path``'s."""
+    bf16 latent, so within one level); (d)'s images against (a)'s in
+    levels, a reading; seconds per image beside ``main_path``'s."""
     import os
 
     from image_editing_framework_torch import sd_mapping, shims
@@ -1565,11 +1738,14 @@ def phase_sweep_path(root, snapshot):
     if len(work) != 3 or len(skipped_by_category) != 1:
         raise AssertionError(f"mini PIE: {work} in the default categories, {skipped_by_category} outside")
     cache = os.path.join(root, "inversions")
-    exp = {"a": os.path.join(root, "exp_a"), "c": os.path.join(root, "exp_c")}
+    exp = {label: os.path.join(root, "exp_" + label) for label in "acd"}
     sites = SITES["sd"]
+    # (d): the three items as one group of the batched sweep, which launches
+    # what one image launches
     plan = (("a", exp["a"], ["--save_inversions", cache], 3, sweep_launches(sites, 3, STEPS, False)),
             ("b", exp["a"], [], 0, 0),
-            ("c", exp["c"], ["--inversion_path", cache], 3, sweep_launches(sites, 3, STEPS, True)))
+            ("c", exp["c"], ["--inversion_path", cache], 3, sweep_launches(sites, 3, STEPS, True)),
+            ("d", exp["d"], ["--batch_size", str(SWEEP_GROUP)], SWEEP_GROUP, sweep_launches(sites, 1, STEPS, False)))
     saved, runs, images = dict(sd_mapping.sd_maps), {}, {}
     try:
         sd_mapping.sd_maps["1.5"] = snapshot
@@ -1585,6 +1761,8 @@ def phase_sweep_path(root, snapshot):
             with open(os.path.join(out, "sweep_stats_p2p_0.json")) as f:
                 stats = json.load(f)
             keys = SWEEP_DONE_KEYS if done else SWEEP_STATS_KEYS
+            if label == "d":  # its one group is the warm-up, which the steady-state stats leave out
+                keys = keys - SWEEP_TAIL_KEYS
             if set(stats) != keys or (stats["images_done"], stats["images_skipped"]) != (done, 3 - done):
                 raise AssertionError(f"sweep run ({label}) stats {stats}: keys {sorted(set(stats) ^ keys)} differ, or "
                                      f"not {done} done and {3 - done} skipped")
@@ -1617,12 +1795,193 @@ def phase_sweep_path(root, snapshot):
               for name in ("source", "inversion", "edit")}
     if levels["source"] != 0 or max(levels.values()) > 1:
         raise AssertionError(f"the cache's images differ from the inversion's by {levels} levels")
+    # the batched run against the serial one: bf16 GEMMs at another batch may
+    # round otherwise, so this is a reading, not a gate
+    batched_levels = {name: {"max": max(int(np.abs(images["d", key, name].astype(np.int32)
+                                                   - images["a", key, name].astype(np.int32)).max()) for key in work),
+                             "mean": float(np.mean([np.abs(images["d", key, name].astype(np.int32)
+                                                           - images["a", key, name].astype(np.int32)).mean()
+                                                    for key in work]))}
+                      for name in ("source", "inversion", "edit")}
     emit("sweep_path", model="SD1.5 (random weights, seed 0, from the fp16 snapshot, bf16)", resolution=side,
          dtype="bfloat16", steps=STEPS, items=work, runs=runs, cache_vs_inversion_max_levels=levels,
+         batched_vs_serial_levels=batched_levels,
          mean_s_per_image={k: r["mean_s_per_image"] for k, r in runs.items()},
          p50_s_per_image={k: r.get("p50_s_per_image") for k, r in runs.items()},
          main_path_image_s=EMITTED["main_path"]["image_s"], card=card_line())
     return sum(r["flash_launches"] for r in runs.values()), {k: r["flash_launches"] for k, r in runs.items()}
+
+
+# the service's spool: name -> (method, source prompt, target prompt, has an
+# image); four P2P requests (two replace pairs, two refine) make one group of
+# SERVE_GROUP, two MasaCtrl requests one of 2; a synthesis request and a bad
+# method run alone
+SERVE_SPOOL = {
+    "p2p_0": ("p2p", "a cat sitting on the grass", "a dog sitting on the grass", True),
+    "p2p_1": ("p2p", "a dog sitting on the grass", "a cat standing on the grass", True),
+    "p2p_2": ("p2p", "a cat sitting on the grass", "a white cat sitting on the grass", True),
+    "p2p_3": ("p2p", "a dog sitting on the grass", "a small dog sitting on the grass", True),
+    "masa_0": ("masactrl", "a cat sitting on the grass", "a cat standing on the grass", True),
+    "masa_1": ("masactrl", "a dog sitting on the grass", "a dog standing on the grass", True),
+    "syn": ("p2p", "a cat sitting on the grass", "a dog sitting on the grass", False),
+    "nope": ("nope", "a cat", "a dog", False),
+}
+
+
+P2P_GROUP = ("p2p_0", "p2p_1", "p2p_2", "p2p_3")
+MASA_GROUP = ("masa_0", "masa_1")
+
+
+def phase_serve_path(root, snapshot):
+    """The editing service, the system's production entry point
+    (``serve.py EditService.poll_once``), on the SD1.5 snapshot
+    ``phase_checkpoint_path`` wrote into ``root``, loaded by
+    ``cli.load_pipe`` in bf16, 512², 50 steps: a spool of ``SERVE_SPOOL``
+    (smooth seeded 512² PNGs, DDIM inversion, the synthesis request at seed
+    7) and one torn request file, polled until drained with
+    ``max_batch=SERVE_GROUP``; then the first P2P request alone on a service
+    with ``max_batch=1``. Gates: every answer "ok" but the bad method's and
+    the torn file's, the torn file rejected after ``PARSE_RETRIES`` + 1
+    polls with its bytes kept, groups of 4 and 2, every PNG 512² uint8, and
+    each group's exact flash-forward launches: those of one image of its
+    method. Readings: seconds per poll and request, the group's time per
+    image beside the solo request's, and the grouped request's images
+    against the solo ones (bf16 GEMMs at another batch may round
+    otherwise)."""
+    import os
+
+    from PIL import Image
+
+    from image_editing_framework_torch import cli, sd_mapping
+    from image_editing_framework_torch.serve import EditService
+    from image_editing_framework_torch.utils.images import decode_png
+
+    side = MODELS["sd"][2]
+    saved = dict(sd_mapping.sd_maps)
+    try:
+        sd_mapping.sd_maps["1.5"] = snapshot
+        pipe, load_s = timed(lambda: cli.load_pipe("1.5"))
+    finally:
+        sd_mapping.sd_maps.clear()
+        sd_mapping.sd_maps.update(saved)
+    rng = np.random.RandomState(11)
+    inputs = os.path.join(root, "service_inputs")
+    os.makedirs(inputs)
+
+    def request(svc, name):
+        method, source, target, real = SERVE_SPOOL[name]
+        req = dict(method=method, source_prompt=source, target_prompt=target, image_path=None)
+        if real:
+            req.update(image_path=os.path.join(inputs, name + ".png"), inversion_type="ddim")
+            if not os.path.exists(req["image_path"]):
+                grid = Image.fromarray(rng.randint(0, 256, (8, 8, 3)).astype(np.uint8))
+                grid.resize((side, side), Image.BICUBIC).save(req["image_path"])
+        else:
+            req["seed"] = 7
+        with open(os.path.join(svc.requests_dir, name + ".json"), "w") as f:
+            json.dump(req, f)
+
+    def counted(svc):
+        """Each group's or request's launches and seconds, read around its
+        call on the polling thread: {names: (launches, seconds)}."""
+        calls, handle_batch, handle = {}, svc.handle_batch, svc.handle
+
+        def read(key, fn, *args, **kw):
+            before, start = launch_counts(), time.perf_counter()
+            try:
+                out, _ = timed(lambda: fn(*args, **kw))
+            finally:  # a request that fails counts too
+                calls[key] = (tuple(a - b for a, b in zip(launch_counts(), before)), time.perf_counter() - start)
+            return out
+
+        svc.handle_batch = lambda names, *a, **kw: read(tuple(names), handle_batch, names, *a, **kw)
+        svc.handle = lambda name, *a, **kw: read((name,), handle, name, *a, **kw)
+        return calls
+
+    def response(svc, name):
+        with open(os.path.join(svc.results_dir, name, "response.json")) as f:
+            return json.load(f)
+
+    def png(svc, name, f):
+        with open(os.path.join(svc.results_dir, name, f + ".png"), "rb") as fh:
+            img = decode_png(fh.read())
+        if img is None or img.shape != (side, side, 3) or img.dtype != np.uint8 or img.std() == 0:
+            raise AssertionError(f"served {name}/{f}.png: {None if img is None else img.shape}, constant or misshapen")
+        return img
+
+    svc = EditService(pipe, os.path.join(root, "service"), max_batch=SERVE_GROUP)
+    solo = EditService(pipe, os.path.join(root, "service_solo"), max_batch=1)
+    try:
+        for name in SERVE_SPOOL:
+            request(svc, name)
+        torn = os.path.join(svc.requests_dir, "torn.json")
+        with open(torn, "w") as f:
+            f.write('{"method": "p2p", "source_prompt": "a cat')
+        calls = counted(svc)
+        reset_launch_counts()
+        polls = []
+        while any(f.endswith(".json") for f in os.listdir(svc.requests_dir)):
+            if len(polls) > svc.PARSE_RETRIES:
+                raise AssertionError(f"the spool is not drained after {len(polls)} polls")
+            handled, poll_s = timed(svc.poll_once)
+            polls.append(dict(handled=handled, seconds=poll_s))
+        poll_launches = launch_counts()
+        # the first P2P request again, alone
+        request(solo, "p2p_0")
+        solo_calls = counted(solo)
+        reset_launch_counts()
+        solo_handled, solo_s = timed(solo.poll_once)
+
+        # a group launches what one image does; a synthesis inverts nothing,
+        # as an item from the cache
+        real, synthesis = (sweep_launches(SITES["sd"], 1, STEPS, cached) for cached in (False, True))
+        expected = {P2P_GROUP: (real, 0, 0), MASA_GROUP: (real, 0, 0), ("syn",): (synthesis, 0, 0),
+                    ("nope",): (0, 0, 0)}
+        got = {key: launches for key, (launches, _) in calls.items()}
+        if got != expected or poll_launches != tuple(map(sum, zip(*expected.values()))):
+            raise AssertionError(f"served launches (forward, dQ, dK/dV) {got}, the poll {poll_launches}; expected "
+                                 f"{expected}")
+        if set(solo_calls) != {("p2p_0",)} or solo_calls[("p2p_0",)][0] != (real, 0, 0):
+            raise AssertionError(f"the solo request launched {solo_calls}")
+        answers = {name: response(svc, name) for name in list(SERVE_SPOOL) + ["torn"]}
+        bad = {name: r for name, r in answers.items() if (r["status"] == "ok") == (name in ("nope", "torn"))}
+        sizes = {name: answers[name].get("batched_with") for name in SERVE_SPOOL}
+        want_sizes = {name: SERVE_GROUP if name.startswith("p2p") else 2 if name.startswith("masa") else None
+                      for name in SERVE_SPOOL}
+        if bad or sizes != want_sizes or response(solo, "p2p_0")["status"] != "ok" or solo_handled != 1:
+            raise AssertionError(f"service answers {bad or answers}, groups {sizes}")
+        rejected = os.path.join(svc.rejected_dir, "torn.json")
+        if [p["handled"] for p in polls] != [len(SERVE_SPOOL)] + [0] * svc.PARSE_RETRIES or not os.path.exists(
+                rejected) or open(rejected).read() != '{"method": "p2p", "source_prompt": "a cat':
+            raise AssertionError(f"polls {polls}: the torn request was not rejected after "
+                                 f"{svc.PARSE_RETRIES + 1} polls with its bytes kept")
+        for name, (method, _, _, has_image) in SERVE_SPOOL.items():
+            if method != "nope":
+                for f in ("source", "inversion", "edit") if has_image else ("inversion", "edit"):
+                    png(svc, name, f)
+        grouped_vs_solo = {}
+        for f in ("inversion", "edit"):
+            a, b = png(svc, "p2p_0", f).astype(np.float64), png(solo, "p2p_0", f).astype(np.float64)
+            mse = float(np.mean((a - b) ** 2))
+            grouped_vs_solo[f] = dict(max_levels=int(np.abs(a - b).max()), mean_levels=float(np.abs(a - b).mean()),
+                                      psnr_db=10 * math.log10(255.0 ** 2 / mse) if mse else float("inf"))
+    finally:
+        for service in (svc, solo):
+            service._io_pool.shutdown()
+            service._finalize_pool.shutdown()
+    group_s = {",".join(k): s for k, (_, s) in calls.items()}
+    per_image = calls[P2P_GROUP][1] / len(P2P_GROUP)
+    emit("serve_path", model="SD1.5 (random weights, seed 0, from the fp16 snapshot, bf16)", resolution=side,
+         dtype="bfloat16", steps=STEPS, load_s=load_s, max_batch=SERVE_GROUP, polls=polls,
+         poll_s=sum(p["seconds"] for p in polls), s_per_request=sum(p["seconds"] for p in polls) / len(SERVE_SPOOL),
+         call_s=group_s, launches={",".join(k): v for k, v in got.items()}, poll_launches=poll_launches,
+         p2p_group_s_per_image=per_image, masactrl_group_s_per_image=calls[MASA_GROUP][1] / len(MASA_GROUP),
+         solo_s=solo_calls[("p2p_0",)][1], solo_poll_s=solo_s, images_per_hour_at_group=3600.0 / per_image,
+         grouped_vs_solo=grouped_vs_solo, stats=svc.stats, main_path_image_s=EMITTED["main_path"]["image_s"],
+         card=card_line())
+    del pipe
+    torch.cuda.empty_cache()
+    return poll_launches[0] + solo_calls[("p2p_0",)][0][0]
 
 
 def phase_xl_checkpoint_path(pipe):
@@ -1740,8 +2099,8 @@ def phase_nti_path(model, pipe):
     """The same edit through null-text inversion, the reference's default:
     ``cli.invert(..., "null-text", "p2p")`` (DDIM inversion, then 50 steps of
     Adam iterations on the unconditional embedding) and
-    ``p2p_edit(uncond_seq=...)``. SD1.5 runs the default NTIConfig (up to 10
-    inner iterations per step). SDXL runs its own schedule (each step from
+    ``p2p_edit(uncond_seq=...)``. SD1.5 runs the default NTIConfig with
+    SD_INNER_STEPS inner iterations per step. SDXL runs its own schedule (each step from
     the original embedding, the negative pooled embeds on the unconditional
     branch, the checkpointed UNet by the auto rule at latent side 128) at
     full width with XL_INNER_STEPS inner iterations per step: with random
@@ -1756,7 +2115,7 @@ def phase_nti_path(model, pipe):
     image = (np.random.RandomState(1).rand(side, side, 3) * 255).astype(np.uint8)
     cfg = P2PConfig(edit_type="replace", blend_words=(("cat",), ("dog",)))
     sampler = SamplerConfig(num_inference_steps=STEPS, height=side, width=side)
-    inner_steps = XL_INNER_STEPS if model == "xl" else NTIConfig().num_inner_steps
+    inner_steps = XL_INNER_STEPS if model == "xl" else SD_INNER_STEPS
 
     # the NTI call's own seconds and launch counts, read around it
     marks = {}
@@ -2133,6 +2492,7 @@ def main() -> int:
             with tempfile.TemporaryDirectory(prefix="ief_checkpoint_", dir=scratch_base(5, "checkpoint_disk")) as tmp:
                 launches["checkpoint"], snapshot = run("checkpoint_path", phase_checkpoint_path, profile_args[0], tmp)
                 launches["sweep"], sweep_runs = run("sweep_path", phase_sweep_path, tmp, snapshot)
+                launches["serve"] = run("serve_path", phase_serve_path, tmp, snapshot)
         else:
             launches["xl_checkpoint"] = run("xl_checkpoint_path", phase_xl_checkpoint_path, profile_args[0])
         nti_counts, nti = run(prefix + "nti_path", phase_nti_path, model, profile_args[0])
@@ -2212,7 +2572,8 @@ def main() -> int:
         "replaces": f"{tpu}:76", "also_replaces": f"{tpu}:205",
         "launches": sum(launches.values()),
         "launches_by_path": {"main_path": launches["sd"], "checkpoint_path": launches["checkpoint"],
-                             "sweep_path": launches["sweep"], "xl_main_path": launches["xl"],
+                             "sweep_path": launches["sweep"], "serve_path": launches["serve"],
+                             "sweep_batched_run": sweep_runs["d"], "xl_main_path": launches["xl"],
                              "xl_checkpoint_path": launches["xl_checkpoint"],
                              "masactrl_path": launches["masactrl"], "xl_masactrl_path": launches["xl_masactrl"],
                              "pnp_path": launches["pnp"], "xl_pnp_path": launches["xl_pnp"],

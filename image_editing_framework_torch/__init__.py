@@ -10,9 +10,11 @@ SD2.1 and SDXL pipelines (with seeded random weights, or loaded from
 HF-snapshot directories and single-file LDM checkpoints by
 ``load_pipeline``, with the CLIP BPE tokenizer), the reference's
 ``edit_real`` / ``edit_syn`` entry points (``cli.py``, ``shims.py``), and
-its PIE-Bench sweep one image at a time (``test`` / ``cli.test_main``:
-``data/pie.py``, the inversion cache, ``eval/metrics.py`` MSE / PSNR / SSIM,
-``eval/sweep.py``).
+its PIE-Bench sweep (``test`` / ``cli.test_main``: ``data/pie.py``, the
+inversion cache, ``eval/metrics.py`` MSE / PSNR / SSIM, ``eval/sweep.py``,
+one image at a time or in batched groups), the batched editors
+(``eval/batched.py``, batched null-text inversion) and the editing service
+(``serve.py``).
 
 Importing the package imports nothing heavy: the top-level API below is
 resolved on first access, as the JAX package's is.

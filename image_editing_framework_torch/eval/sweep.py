@@ -1,6 +1,6 @@
-"""The PIE-Bench sweep, one image at a time.
+"""The PIE-Bench sweep, one image at a time or in batched groups.
 
-Counterpart of ``image_editing_framework_tpu/eval/sweep.py`` at batch 1.
+Counterpart of ``image_editing_framework_tpu/eval/sweep.py``.
 Reference shape (p2p/test.py:114-181): loop categories [0-4, 6-9] (5 is
 skipped), per image invert -> edit -> save
 ``test_exp/<image>/{source,inversion,edit}.png``; P2P picks replace vs
@@ -36,8 +36,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from image_editing_framework_torch.cli import GUIDANCE_SCALE, INVERSION_TYPES, nti_config_for
 from image_editing_framework_torch.core.config import P2PConfig, SamplerConfig
 from image_editing_framework_torch.data.pie import DEFAULT_CATEGORIES, PIE, PIEPrecomputedInversion, save_inversion
+from image_editing_framework_torch.eval import batched
 from image_editing_framework_torch.eval import metrics as qmetrics
 from image_editing_framework_torch.utils.images import load_image, save_img
 
@@ -47,6 +49,43 @@ def _auto_p2p_config(source_prompt: str, target_prompt: str) -> P2PConfig:
     if len(source_prompt.split(" ")) == len(target_prompt.split(" ")):
         return P2PConfig(edit_type="replace")
     return P2PConfig(edit_type="refine")
+
+
+def _edit_group(pipe, method, group, images, inversion_type, method_kwargs, sampler, cached, save_inversions):
+    """One group of the batched sweep (JAX ``sweep.py:257-341``): its
+    inversions from the cache (``cached``) or by ``ddim_invert_batch``
+    (null-text then image by image, ``nti_group_serial``; direct with each
+    image's trajectory replayed), each image's inversion saved if asked,
+    then one batched edit. Returns each image's (inversion, edit) uint8."""
+    src_prompts = [it.source_prompt for it in group]
+    source_replays = uncond_seqs = None
+    if cached is not None:
+        # the cache holds no trajectory: direct inversion edits as ddim here,
+        # as on the serial cache path
+        loaded = [cached(it) for it in group]
+        inverted = torch.stack([lat for lat, _ in loaded])
+        if inversion_type == "null-text":
+            if any(u is None for _, u in loaded):
+                raise ValueError("null-text batched sweep from inversion_path needs a cached uncond_seq for every "
+                                 "image")
+            uncond_seqs = torch.stack([u for _, u in loaded])
+    else:
+        lats = torch.stack([pipe.image2latent(image) for image in images])  # (G, 1, h, w, 4)
+        inverted, trajs = batched.ddim_invert_batch(pipe, lats, src_prompts, return_trajectory=True)
+        if inversion_type == "null-text":
+            uncond_seqs = batched.nti_group_serial(pipe, trajs, src_prompts, nti_config_for(method, pipe),
+                                                   guidance_scale=GUIDANCE_SCALE)
+        elif inversion_type == "direct":
+            source_replays = trajs
+    if save_inversions:
+        for gi, item in enumerate(group):
+            save_inversion(save_inversions, item.key, inverted[gi], None if uncond_seqs is None else uncond_seqs[gi])
+    cfg = (method_kwargs or {}).get("config")
+    if method == "p2p":
+        cfg = [cfg or _auto_p2p_config(it.source_prompt, it.target_prompt) for it in group]
+    imgs = batched.edit_batch(method, pipe, [[it.source_prompt, it.target_prompt] for it in group], inverted, cfg,
+                              sampler.guidance_scale, uncond_seqs=uncond_seqs, source_replays=source_replays)
+    return [(pair[0], pair[1]) for pair in imgs]
 
 
 def _json_safe_metrics(row: dict) -> dict:
@@ -90,11 +129,18 @@ def run_sweep(
     stats. PNG decode and encode run on a pool of 8 threads (the reference's
     DataLoader num_workers=8, p2p/test.py:116), the metrics on their own 2.
 
-    Not ported yet: ``batch_size`` > 1 (ROADMAP.md A4) and the CLIP score
-    and LPIPS metrics (``clip_checkpoint``, ``lpips_weights``: A3); each
-    raises NotImplementedError."""
-    if batch_size > 1:
-        raise NotImplementedError("batch_size > 1 (the batched sweep) is not ported yet: ROADMAP.md A4")
+    ``batch_size`` > 1 edits the items in groups of that many, each group in
+    one batch (``eval/batched.py``; ddim, null-text or direct inversion,
+    with the cache as with one image): the group's inversion and edit are
+    batched, its null-text inversion runs image by image
+    (``nti_group_serial``), each image's time is the group's over its size,
+    and the steady-state stats leave out the first group. The next group's
+    images are decoded while the card computes.
+
+    Not ported yet: the CLIP score and LPIPS metrics (``clip_checkpoint``,
+    ``lpips_weights``: ROADMAP.md A3); each raises NotImplementedError."""
+    if batch_size > 1 and inversion_type not in INVERSION_TYPES:
+        raise ValueError("batched sweep supports ddim/null-text/direct inversion")
     if clip_checkpoint or lpips_weights is not None:
         raise NotImplementedError("the sweep's CLIP score and LPIPS metrics (clip_checkpoint, lpips_weights) are "
                                   "not ported yet: ROADMAP.md A3")
@@ -174,32 +220,49 @@ def run_sweep(
             # completeness is checked against this sweep's work list
             cache = PIEPrecomputedInversion(dataset_path, inversion_path, required_items=pending)
             by_key = {it.key: it for it in cache.items}
-        load_future = pool.submit(load_image, pending[0].image_path, res, res) if pending else None
-        for idx, item in enumerate(pending):
-            out_dir = os.path.join(exp_path, item.key)
-            os.makedirs(out_dir, exist_ok=True)
+
+        def cached(item):
+            """(latent, uncond_seq or None) of ``item`` from the cache, on the card."""
+            lat_np, uncond_np = cache.load_inversion(by_key[item.key])
+            return (torch.from_numpy(lat_np).to(pipe.device, pipe.dtype),
+                    None if uncond_np is None else torch.from_numpy(uncond_np).to(pipe.device))
+
+        groups = [pending[g0:g0 + batch_size] for g0 in range(0, len(pending), batch_size)]
+
+        def load_group(group):
+            return [load_image(it.image_path, res, res) for it in group]
+
+        # the next group's decodes run while the card computes this one's
+        load_future = pool.submit(load_group, groups[0]) if groups else None
+        for gi, group in enumerate(groups):
             t0 = time.perf_counter()
-            image = load_future.result()
-            load_future = (pool.submit(load_image, pending[idx + 1].image_path, res, res)
-                           if idx + 1 < len(pending) else None)
-            save_async(image, os.path.join(out_dir, "source.png"))
-            traj = None
-            if cache is not None:
-                lat_np, uncond_np = cache.load_inversion(by_key[item.key])
-                latent = torch.from_numpy(lat_np).to(pipe.device, pipe.dtype)
-                uncond_seq = None if uncond_np is None else torch.from_numpy(uncond_np).to(pipe.device)
+            images = load_future.result()
+            load_future = pool.submit(load_group, groups[gi + 1]) if gi + 1 < len(groups) else None
+            for item, image in zip(group, images):
+                os.makedirs(os.path.join(exp_path, item.key), exist_ok=True)
+                save_async(image, os.path.join(exp_path, item.key, "source.png"))
+            if batch_size > 1:
+                imgs = _edit_group(pipe, method, group, images, inversion_type, method_kwargs, sampler,
+                                   cached if cache is not None else None, save_inversions)
             else:
-                latent, traj, uncond_seq = invert(pipe, image, item.source_prompt, inversion_type, method)
-            if save_inversions:
-                save_inversion(save_inversions, item.key, latent, uncond_seq)
-            kw = dict(method_kwargs or {})
-            if method == "p2p" and "config" not in kw:
-                kw["config"] = _auto_p2p_config(item.source_prompt, item.target_prompt)
-            replay = traj if inversion_type == "direct" else None
-            inv_img, edit_img = run_method(method, pipe, [item.source_prompt, item.target_prompt], latent, sampler,
-                                           uncond_seq, kw, source_replay=replay)
-            finish(item, image, inv_img, edit_img, time.perf_counter() - t0)
-            done += 1
+                item, image = group[0], images[0]
+                traj = None
+                if cache is not None:
+                    latent, uncond_seq = cached(item)
+                else:
+                    latent, traj, uncond_seq = invert(pipe, image, item.source_prompt, inversion_type, method)
+                if save_inversions:
+                    save_inversion(save_inversions, item.key, latent, uncond_seq)
+                kw = dict(method_kwargs or {})
+                if method == "p2p" and "config" not in kw:
+                    kw["config"] = _auto_p2p_config(item.source_prompt, item.target_prompt)
+                replay = traj if inversion_type == "direct" else None
+                imgs = [run_method(method, pipe, [item.source_prompt, item.target_prompt], latent, sampler,
+                                   uncond_seq, kw, source_replay=replay)]
+            elapsed = (time.perf_counter() - t0) / len(group)
+            for item, image, (inv_img, edit_img) in zip(group, images, imgs):
+                finish(item, image, inv_img, edit_img, elapsed)
+            done += len(group)
     finally:
         pool.shutdown(wait=True)  # drain the workers even when an image failed
         metric_pool.shutdown(wait=True)
@@ -216,7 +279,7 @@ def run_sweep(
             except Exception as e:  # noqa: BLE001 — recorded, raised or warned below
                 errors.append(e)
     wall = time.perf_counter() - t_start
-    tail = times[1:]  # the first image pays the warm-up
+    tail = times[max(1, batch_size):]  # the first image, or the first group, pays the warm-up
     stats = {
         "method": method,
         "inversion_type": inversion_type,

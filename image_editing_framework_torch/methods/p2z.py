@@ -19,6 +19,11 @@ probabilities) and through every self-attention site upstream of one, the
 first included, where the flash kernel's autograd Function runs the
 backward kernels. At XL 1024² the UNet is taken with its transformer
 blocks checkpointed (``methods/common.py grad_unet``).
+
+A group of images runs both passes in one batch (``_guided_scan_group``,
+``eval/batched.py p2z_edit_batch``): each image gets its own loss, its own
+gradient and its own SGD step, because the images' losses are summed. The
+serial functions are the group functions on a group of 1.
 """
 
 from __future__ import annotations
@@ -31,21 +36,38 @@ import torch
 from image_editing_framework_torch.core.config import P2ZConfig, SamplerConfig
 from image_editing_framework_torch.core.scheduler import DDIMSchedule, ddim_step
 from image_editing_framework_torch.methods import common
-from image_editing_framework_torch.methods.base import _step_context, denoise
+from image_editing_framework_torch.methods.base import _group_context, _group_of_one, denoise, flat, flat_added
 from image_editing_framework_torch.ops.controls import P2ZControl, P2ZStep
 
 Records = Dict[str, torch.Tensor]
 
 
-def attention_loss(rec: Records, ref: Records) -> torch.Tensor:
-    """Sum over sites of the squared distance of the maps to the references,
-    summed over (N, 77) and averaged over batch and heads, in f32
-    (pix2pix-zero/model/sd_utils.py:166-172; JAX ``attn_loss``)."""
+def attention_losses(rec: Records, ref: Records, group: int = 1) -> torch.Tensor:
+    """(G,) f32 loss of each image of a group: the sum over sites of the
+    squared distance of its maps to its references, summed over (N, 77) and
+    averaged over its batch rows and heads (pix2pix-zero/model/sd_utils.py:
+    166-172; JAX ``attn_loss``). Maps are (G·2, H, N, 77), image-major."""
     loss = 0.0
     for k, cur in rec.items():
         d = cur.float() - ref[k].float()
-        loss = loss + d.square().sum(dim=(2, 3)).mean()
+        loss = loss + d.square().sum(dim=(2, 3)).reshape(group, -1).mean(dim=1)
     return loss
+
+
+def guidance_gradient_group(
+    unet, x_in: torch.Tensor, t: int, context: torch.Tensor, ref: Records,
+    added_cond: Optional[Dict[str, torch.Tensor]] = None, group: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(each image's loss (G,), d loss / d x_in) of one guided step of a
+    group at timestep ``t``: ``x_in`` (G·2, h, w, 4), the references ``ref``
+    per cross site (G·2, H, N, 77). The images' losses are summed, never
+    averaged, so that each image's rows get its own loss's gradient."""
+    x_in = x_in.detach().requires_grad_(True)
+    with torch.enable_grad():
+        _, rec = unet(x_in, t, context, P2ZStep(), added_cond)
+        losses = attention_losses(rec, ref, group)
+        (g,) = torch.autograd.grad(losses.sum(), x_in)
+    return losses.detach(), g
 
 
 def guidance_gradient(
@@ -55,51 +77,104 @@ def guidance_gradient(
     """(loss, d loss / d x_in) of one guided step at timestep ``t``:
     ``x_in`` (2, h, w, 4), the references ``ref`` per cross site (2, H, N,
     77)."""
-    x_in = x_in.detach().requires_grad_(True)
-    with torch.enable_grad():
-        _, rec = unet(x_in, t, context, P2ZStep(), added_cond)
-        loss = attention_loss(rec, ref)
-        (g,) = torch.autograd.grad(loss, x_in)
-    return loss.detach(), g
+    losses, g = guidance_gradient_group(unet, x_in, t, context, ref, added_cond)
+    return losses[0], g
 
 
 @torch.no_grad()
+def source_records_group(
+    unet, sched: DDIMSchedule, i: int, src_trajs: torch.Tensor, ctx_srcs: torch.Tensor,
+    uncond_seqs: Optional[torch.Tensor] = None, added_srcs: Optional[Dict[str, torch.Tensor]] = None,
+) -> Records:
+    """Pass 1's records of step i made again for a group (``recompute_refs``):
+    its forward on the stored UNet input latents ``src_trajs[i]`` (G, 1, h,
+    w, 4) under the source contexts (G, 2, 77, D), the NTI swap included, so
+    the same inputs give the same maps."""
+    lat = src_trajs[i]
+    _, ref = unet(flat(torch.cat([lat, lat], dim=1)), int(sched.timesteps[i]),
+                  flat(_group_context(ctx_srcs, uncond_seqs, i)), P2ZStep(), flat_added(added_srcs))
+    return ref
+
+
 def source_records(
     unet, sched: DDIMSchedule, i: int, src_traj: torch.Tensor, ctx_src: torch.Tensor,
     uncond_seq: Optional[torch.Tensor] = None, added_src: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Records:
-    """Pass 1's records of step i made again (``recompute_refs``): its
-    forward on its stored UNet input latent ``src_traj[i]`` under the source
-    context, the NTI swap included, so the same inputs give the same maps."""
-    _, ref = unet(torch.cat([src_traj[i], src_traj[i]]), int(sched.timesteps[i]),
-                  _step_context(ctx_src, uncond_seq, i), P2ZStep(), added_src)
-    return ref
+    """``source_records_group`` of one image: ``src_traj`` (S, 1, h, w, 4),
+    ``ctx_src`` (2, 77, D)."""
+    return source_records_group(unet, sched, i, src_traj[:, None], ctx_src[None],
+                                None if uncond_seq is None else uncond_seq[None], _group_of_one(added_src))
 
 
 @torch.no_grad()
-def guided_step(
-    unet, sched: DDIMSchedule, i: int, lat: torch.Tensor, context: torch.Tensor, ref: Records,
-    guidance_scale: float, guidance_amount: float, added_cond: Optional[Dict[str, torch.Tensor]] = None,
+def guided_step_group(
+    unet, sched: DDIMSchedule, i: int, lat: torch.Tensor, contexts: torch.Tensor, ref: Records,
+    guidance_scale: float, guidance_amount: float, added_conds: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One step of pass 2 at step index i from the (1, h, w, 4) latent
-    ``lat``: an SGD step of size ``guidance_amount`` on ``x_in = [lat,
-    lat]`` against the references ``ref``, the noise on the updated pair,
-    whose halves now differ, and the guided DDIM step from its first half.
-    Returns (the next latent, the loss)."""
+    """One step of pass 2 at step index i for a group, from the (G, 1, h, w,
+    4) latents ``lat``: per image an SGD step of size ``guidance_amount`` on
+    ``x_in = [lat, lat]`` against its references ``ref``, the noise on the
+    updated pair, whose halves now differ, and the guided DDIM step from its
+    first half; one UNet call for the gradient and one for the noise at
+    batch G·2. Returns (the next latents, each image's loss (G,))."""
     # the step size in the latent's dtype, as the JAX package casts it
     # (p2z.py:179): bf16 0.1 is 0.10009765625
     lr = float(torch.tensor(guidance_amount, dtype=lat.dtype))
     t = int(sched.timesteps[i])
-    x_in = torch.cat([lat, lat])
-    loss, g = guidance_gradient(unet, x_in, t, context, ref, added_cond)
-    x_in = x_in - lr * g
-    eps, _ = unet(x_in, t, context, None, added_cond)
-    eps_u, eps_c = eps.chunk(2)
+    g = lat.shape[0]
+    x_in = flat(torch.cat([lat, lat], dim=1))
+    ctx, added = flat(contexts), flat_added(added_conds)
+    losses, grad = guidance_gradient_group(unet, x_in, t, ctx, ref, added, g)
+    x_in = (x_in - lr * grad).reshape((g, 2) + tuple(x_in.shape[1:]))
+    eps, _ = unet(flat(x_in), t, ctx, None, added)
+    eps_u, eps_c = eps.reshape(x_in.shape).chunk(2, dim=1)
     # reference: latents = x_in.chunk(2)[0] (sd_utils.py:180)
-    return ddim_step(sched, eps_u + guidance_scale * (eps_c - eps_u), i, x_in[:1]), loss
+    return ddim_step(sched, eps_u + guidance_scale * (eps_c - eps_u), i, x_in[:, :1]), losses
+
+
+def guided_step(
+    unet, sched: DDIMSchedule, i: int, lat: torch.Tensor, context: torch.Tensor, ref: Records,
+    guidance_scale: float, guidance_amount: float, added_cond: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``guided_step_group`` of one image, from the (1, h, w, 4) latent
+    ``lat`` with the (2, 77, D) ``context``. Returns (the next latent, the
+    loss)."""
+    nxt, losses = guided_step_group(unet, sched, i, lat[None], context[None], ref, guidance_scale, guidance_amount,
+                                    _group_of_one(added_cond))
+    return nxt[0], losses[0]
 
 
 @torch.no_grad()
+def _guided_scan_group(
+    unet,
+    sched: DDIMSchedule,
+    latents0: torch.Tensor,  # (G, 1, h, w, 4)
+    contexts: torch.Tensor,  # (G, 2, 77, D) [uncond, cond(target)] per image
+    refs: Optional[Records],  # per site (S, G·2, H, N, 77) maps, or None with src_trajs
+    guidance_scale: float,
+    guidance_amount: float,
+    added_conds: Optional[Dict[str, torch.Tensor]] = None,  # dict of (G, 2, ...)
+    uncond_seqs: Optional[torch.Tensor] = None,  # (G, S, 77, D) NTI embeddings
+    src_trajs: Optional[torch.Tensor] = None,  # (S, G, 1, h, w, 4) pass-1 UNet input latents
+    ctx_srcs: Optional[torch.Tensor] = None,  # (G, 2, 77, D) source-prompt contexts
+    added_srcs: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 2 for a group. Returns the final (G, 1, h, w, 4) latents and the
+    (S, G) f32 loss of each step and image, on the latents' device. Without
+    ``refs`` each step makes its references again from ``src_trajs``
+    (``source_records_group``)."""
+    lat, losses = latents0, []
+    for i in range(sched.num_steps):
+        if refs is not None:
+            ref = {k: v[i] for k, v in refs.items()}
+        else:
+            ref = source_records_group(unet, sched, i, src_trajs, ctx_srcs, uncond_seqs, added_srcs)
+        lat, loss = guided_step_group(unet, sched, i, lat, _group_context(contexts, uncond_seqs, i), ref,
+                                      guidance_scale, guidance_amount, added_conds)
+        losses.append(loss)
+    return lat, torch.stack(losses)
+
+
 def _guided_scan(
     unet,
     sched: DDIMSchedule,
@@ -114,19 +189,13 @@ def _guided_scan(
     ctx_src: Optional[torch.Tensor] = None,  # (2, 77, D) source-prompt context
     added_src: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pass 2. Returns the final (1, h, w, 4) latent and the (S,) f32 loss of
-    each step, on the latent's device. Without ``refs`` each step makes its
-    references again from ``src_traj`` (``source_records``)."""
-    lat, losses = latents0, []
-    for i in range(sched.num_steps):
-        if refs is not None:
-            ref = {k: v[i] for k, v in refs.items()}
-        else:
-            ref = source_records(unet, sched, i, src_traj, ctx_src, uncond_seq, added_src)
-        lat, loss = guided_step(unet, sched, i, lat, _step_context(context, uncond_seq, i), ref, guidance_scale,
-                                guidance_amount, added_cond)
-        losses.append(loss)
-    return lat, torch.stack(losses)
+    """Pass 2 of one image (``_guided_scan_group`` of a group of 1). Returns
+    the final (1, h, w, 4) latent and the (S,) f32 loss of each step."""
+    lat, losses = _guided_scan_group(
+        unet, sched, latents0[None], context[None], refs, guidance_scale, guidance_amount, _group_of_one(added_cond),
+        None if uncond_seq is None else uncond_seq[None], None if src_traj is None else src_traj[:, None],
+        None if ctx_src is None else ctx_src[None], _group_of_one(added_src))
+    return lat[0], losses[:, 0]
 
 
 def p2z_edit(

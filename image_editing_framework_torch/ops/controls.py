@@ -19,9 +19,17 @@ Per-step gates are 0-d bool tensors on the pipeline's device, applied with
 ``torch.where``, and index tensors are made on the device (``arange``) or
 once per control, so that no step makes the host wait for the card.
 
-Batch layout everywhere: B = 2P, ``[u_0..u_{P-1}, c_0..c_{P-1}]`` with the
-source prompt at index 0 of each CFG half, so "edit only the conditional
-half" means batch indices > P.
+Batch layout everywhere: B = G·2P, group-major. A group of G images (the
+batched editors of ``eval/batched.py``; the serial editors are a group of
+1) is folded into the batch axis, and each image's block of 2P rows keeps
+the order ``[u_0..u_{P-1}, c_0..c_{P-1}]``, the source prompt at index 0 of
+each CFG half. So "edit only the conditional half" means the rows of each
+block past its index P, and every step acts on a ``(G, 2P, ...)`` view of
+its operands: a P2P source is its own image's, a MasaCtrl target attends to
+its own image's source, a PnP target takes its own image's source
+features. A control built for one image broadcasts to the group;
+``stack_controls`` stacks one P2P control per image (a leading G axis on its
+tensors, the step axis first on the per-step table).
 """
 
 from __future__ import annotations
@@ -110,7 +118,12 @@ class P2PStep(NoneStep):
             return None
         p = self.num_prompts
         iota = torch.arange(batch, dtype=torch.int64, device=device)
-        idx = torch.where(iota > p, p, iota) if self.self_gate else iota
+        if self.self_gate:
+            # each image's targets take its own conditional source's Q and K
+            row = iota % (2 * p)
+            idx = iota - row + torch.where(row > p, p, row)
+        else:
+            idx = iota
         return SelfAttnPlan(
             q_idx=idx,
             k_idx=idx[:, None],
@@ -120,13 +133,17 @@ class P2PStep(NoneStep):
 
     def edit_cross(self, site: AttnSite, probs: torch.Tensor) -> torch.Tensor:
         p = self.num_prompts
-        base = probs[p]  # conditional source (H, N, 77)
-        mapped = torch.einsum("hnw,pwv->phnv", base, self.mapper)
-        tgt = probs[p + 1 :]
-        ta = self.tok_alpha[:, None, None, :]
-        inner = (mapped * ta + tgt * (1.0 - ta)) * self.equalizer[:, None, None, :]
-        aw = self.alpha_words[:, None, None, :]
-        return torch.cat([probs[: p + 1], inner * aw + tgt * (1.0 - aw)], dim=0)
+        blocks = probs.view((-1, 2 * p) + tuple(probs.shape[1:]))  # (G, 2P, H, N, 77)
+        mapper = _per_image(self.mapper, 3)
+        tok_alpha, equalizer, alpha_words = (_per_image(x, 2) for x in (self.tok_alpha, self.equalizer,
+                                                                        self.alpha_words))
+        base = blocks[:, p]  # each image's conditional source (G, H, N, 77)
+        mapped = torch.einsum("ghnw,gpwv->gphnv", base, mapper)
+        tgt = blocks[:, p + 1 :]
+        ta = tok_alpha[:, :, None, None, :]
+        inner = (mapped * ta + tgt * (1.0 - ta)) * equalizer[:, :, None, None, :]
+        aw = alpha_words[:, :, None, None, :]
+        return torch.cat([blocks[:, : p + 1], inner * aw + tgt * (1.0 - aw)], dim=1).view(probs.shape)
 
     def record_key(self, site: AttnSite) -> Optional[str]:
         if self.record_blend and site.is_cross and site.seq_len == _RES16_SEQ:
@@ -134,20 +151,31 @@ class P2PStep(NoneStep):
         return None
 
     def record(self, site: AttnSite, probs: torch.Tensor) -> torch.Tensor:
-        # (2P, H, 256, 77) -> mean over CFG halves and heads -> (P, 256, 77),
-        # mirroring LocalBlend's reshape(P, -1, 1, 16, 16, 77).mean(1)
-        # (p2p/model/ptp_utils.py:23-25).
+        # (G·2P, H, 256, 77) -> mean over each image's CFG halves and the
+        # heads -> (G·P, 256, 77), mirroring LocalBlend's
+        # reshape(P, -1, 1, 16, 16, 77).mean(1) (p2p/model/ptp_utils.py:23-25).
         p = self.num_prompts
         h = probs.shape[1]
-        return probs.reshape(2, p, h, probs.shape[2], 77).mean(dim=(0, 2))
+        return probs.reshape(-1, 2, p, h, probs.shape[2], 77).mean(dim=(1, 3)).reshape(-1, probs.shape[2], 77)
+
+
+def _per_image(x: torch.Tensor, rank: int) -> torch.Tensor:
+    """A P2P tensor of one image's ``rank`` dims with a leading group axis:
+    a stacked control's as it is, one image's as a group of 1."""
+    return x if x.dim() > rank else x[None]
 
 
 @dataclasses.dataclass
 class P2PControl:
+    """One image's P2P tables, or G images' from ``stack_controls``: mapper
+    (P-1, 77, 77) or (G, P-1, 77, 77), tok_alpha and equalizer (P-1, 77) or
+    (G, P-1, 77), cross_alpha (S+1, P-1, 77) or (S+1, G, P-1, 77). The
+    self-replace gate is shared by the group."""
+
     mapper: torch.Tensor
     tok_alpha: torch.Tensor
     equalizer: torch.Tensor
-    cross_alpha: torch.Tensor  # (num_steps + 1, P-1, 77)
+    cross_alpha: torch.Tensor  # (num_steps + 1, P-1, 77), or (num_steps + 1, G, P-1, 77)
     self_gate: np.ndarray  # (num_steps,) bool, read on the host
     num_prompts: int = 2
     record_blend: bool = False
@@ -206,6 +234,23 @@ def build_p2p_control(
     )
 
 
+def stack_controls(items: Sequence[P2PControl]) -> P2PControl:
+    """One control for a group from each image's (JAX ``eval/batched.py
+    stack_controls``): the tensors stacked on a new group axis, after the
+    step axis of ``cross_alpha``; the static fields (the self-replace gate,
+    the prompt count, LocalBlend recording) must agree."""
+    first = items[0]
+    for c in items[1:]:
+        if (c.num_prompts, c.record_blend) != (first.num_prompts, first.record_blend) or not np.array_equal(
+                c.self_gate, first.self_gate):
+            raise ValueError("controls of one group must share their prompt count, LocalBlend recording and "
+                             "self-replace gate")
+    return dataclasses.replace(
+        first, mapper=torch.stack([c.mapper for c in items]), tok_alpha=torch.stack([c.tok_alpha for c in items]),
+        equalizer=torch.stack([c.equalizer for c in items]),
+        cross_alpha=torch.stack([c.cross_alpha for c in items], dim=1))
+
+
 # ---------------------------------------------------------------------------
 # MasaCtrl
 
@@ -226,7 +271,7 @@ def _resize_nearest(mask: torch.Tensor, side: int) -> torch.Tensor:
 @dataclasses.dataclass
 class MasaCtrlStep(NoneStep):
     """Mutual self-attention: at gated (step, layer), every element of each
-    CFG half attends to the half's *source* K/V
+    CFG half of each image attends to the half's *source* K/V
     (masactrl/model/attention_control.py:59-66); "union" mode instead gives
     target elements concat([source, self]) K/V (:102-103), the first
     (source) segment masked by a per-key bias where it does not apply: for
@@ -234,7 +279,9 @@ class MasaCtrlStep(NoneStep):
     ungated steps.
 
     The layer set is static (ungated layers get no plan at all); only the
-    step gate is a tensor.
+    step gate is a tensor. The CFG halves are blocks of P rows in the group
+    layout, so ``(iota // P) * P`` is each row's own image's source. The
+    masked variants below act on one image (the batched editors build none).
     """
 
     step_gate: torch.Tensor  # () bool — this step
@@ -426,8 +473,17 @@ def build_masactrl_control(
 # Plug-and-Play
 
 # Injection gathers the *conditional source* (index 2 of [u_s, u_t, c_s, c_t])
-# into both target branches (pnp/model/register.py:46-52, :163-168).
+# into both target branches (pnp/model/register.py:46-52, :163-168), within
+# each image's block of 4 rows.
 _PNP_INJECT_IDX = (0, 2, 2, 2)
+
+
+def _pnp_rows(inject: torch.Tensor, batch: int) -> torch.Tensor:
+    """(batch,) source row of each row of a group of ``batch // 4`` images."""
+    if batch % 4:
+        raise ValueError(f"PnP operates on blocks of [u_src, u_tgt, c_src, c_tgt], got a batch of {batch}")
+    iota = torch.arange(batch, dtype=torch.int64, device=inject.device)
+    return iota - iota % 4 + inject[iota % 4]
 
 
 @dataclasses.dataclass
@@ -446,18 +502,17 @@ class PnPStep(NoneStep):
     def self_plan(self, site: AttnSite, batch: int, device=None) -> Optional[SelfAttnPlan]:
         if site.layer not in self.attn_layers:
             return None
-        if batch != 4:
-            raise ValueError(f"PnP operates on [u_src, u_tgt, c_src, c_tgt], got a batch of {batch}")
         dev = self.qk_gate.device
+        rows = _pnp_rows(self.inject, batch)
         iota = torch.arange(batch, dtype=torch.int64, device=dev)
-        idx = torch.where(self.qk_gate, self.inject, iota)
+        idx = torch.where(self.qk_gate, rows, iota)
         return SelfAttnPlan(q_idx=idx, k_idx=idx[:, None], v_idx=iota[:, None],
                             valid=torch.ones((batch, 1), dtype=torch.bool, device=dev))
 
     def resnet_hook(self, key: str, h: torch.Tensor) -> torch.Tensor:
         if key not in self.conv_keys:
             return h
-        return torch.where(self.conv_gate, h[self.inject], h)
+        return torch.where(self.conv_gate, h[_pnp_rows(self.inject, h.shape[0])], h)
 
 
 @dataclasses.dataclass

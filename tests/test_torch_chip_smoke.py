@@ -420,3 +420,62 @@ def test_xl_checkpoint_writers_round_trip_on_the_cpu(tmp_path):
     assert both.refiner.vae is both.vae and both.refiner.text_encoder_2 is both.text_encoder_2
     assert both.refiner.tokenizer_2 is both.tokenizer_2 and both.refiner.is_refiner
     assert written["refiner"][1] == sum(t.numel() * 2 for t in refiner_unet.state_dict().values())
+
+
+def test_batched_launch_arithmetic():
+    """A group launches what one image of its method launches: the service's
+    P2P group of 4 and MasaCtrl group of 2 each 50 inversion and 50 edit
+    forwards at 16 sites, the synthesis request 50 edit forwards, the bad
+    method none; the batched sweep's group of 3 as one image. The kernels
+    phases hold the groups' batches: the forward at each group's G and
+    CFG-4 x G, NTI's 3 and p2z's CFG-2 x 2 backward."""
+    smoke = _load_script()
+    sites = smoke.SITES["sd"]
+    assert smoke.sweep_launches(sites, 1, smoke.STEPS, cached=False) == 1600  # a group, or the sweep's group of 3
+    assert smoke.sweep_launches(sites, 1, smoke.STEPS, cached=True) == 800  # a synthesis inverts nothing
+    assert len(smoke.P2P_GROUP) == smoke.SERVE_GROUP == 4 and len(smoke.MASA_GROUP) == 2
+    assert set(smoke.P2P_GROUP) | set(smoke.MASA_GROUP) | {"syn", "nope"} == set(smoke.SERVE_SPOOL)
+    assert (4 * smoke.SERVE_GROUP, smoke.NTI_GROUP, smoke.P2Z_BATCH * smoke.P2Z_GROUP) == (16, 3, 4)
+    assert smoke.SWEEP_GROUP == 3 and smoke.group_batches() == [2, 3, 8, 12, 16]
+
+
+def test_serve_spool_groups_and_words():
+    """The service's P2P group mixes two replace and two refine pairs (the
+    word-count rule the service applies), and every prompt word is a whole
+    token of the snapshot's synthetic vocab."""
+    from image_editing_framework_torch.eval.sweep import _auto_p2p_config
+
+    smoke = _load_script()
+    kinds = [_auto_p2p_config(*smoke.SERVE_SPOOL[n][1:3]).edit_type for n in smoke.P2P_GROUP]
+    assert sorted(kinds) == ["refine", "refine", "replace", "replace"]
+    words = {w for method, s, t, _ in smoke.SERVE_SPOOL.values() if method != "nope" for w in (s + " " + t).split()}
+    assert words <= set(smoke.CKPT_WORDS)
+    assert [smoke.SERVE_SPOOL[n][3] for n in smoke.P2P_GROUP + smoke.MASA_GROUP] == [True] * 6
+    assert not smoke.SERVE_SPOOL["syn"][3]
+
+
+def test_chip_smoke_wires_the_serving_path():
+    """main() runs the serve phase on the SD1.5 snapshot after the sweep
+    and before the NTI path, and the kernels line counts its launches and
+    the batched sweep run's; the tiny phase holds the batched editors."""
+    import inspect
+
+    smoke = _load_script()
+    source = inspect.getsource(smoke.main)
+    assert source.index("phase_sweep_path") < source.index("phase_serve_path") < source.index("phase_nti_path")
+    assert '"serve_path": launches["serve"]' in source and '"sweep_batched_run": sweep_runs["d"]' in source
+    assert "tiny_batched" in inspect.getsource(smoke.phase_tiny)
+    assert '"--batch_size", str(SWEEP_GROUP)' in inspect.getsource(smoke.phase_sweep_path)
+
+
+def test_tiny_batched_rehearses_on_the_cpu():
+    """The tiny phase's batched check on the CPU: every case runs, the group
+    agrees with each image alone within the phase's 1e-3, and the batched
+    NTI's images stop at different inner iterations."""
+    from image_editing_framework_torch.pipelines import tiny_pipeline
+
+    smoke = _load_script()
+    out, seqs, stops = smoke.tiny_batched(tiny_pipeline(num_steps=4, device="cpu"), "sd")
+    assert len(out) + len(seqs) == 9 and stops[0] == smoke.TINY_NTI_STOPS
+    for name, (group, alone) in list(out.items()) + list(seqs.items()):
+        assert (group - alone).abs().max().item() < 1e-3, name
