@@ -68,6 +68,11 @@ Phases, one line of output each (any failure exits non-zero):
      drained; the first request again alone; each group's exact launches
      (those of one image), the answers, the groups, the PNGs, the torn
      file's rejection;
+     validation path: the validation runway (``eval/validate.py main``) on
+     the same snapshot with a seeded random CLIP checkpoint and LPIPS file:
+     all four methods on the synthesized source image, 50 steps, its
+     report's hashes, metrics and exact launches, the CLIP and LPIPS towers
+     on the card against the same towers on the CPU, then P2P again;
   5. nti path: the same model and edit through null-text inversion
      (``cli.invert(..., "null-text")``, 50 steps of ``SD_INNER_STEPS`` (2)
      Adam iterations, each a UNet forward and backward), the edit taking the
@@ -91,7 +96,8 @@ Phases, one line of output each (any failure exits non-zero):
      bf16; the checkpoint path writes the SDXL base as a snapshot and a
      single file and the refiner's UNet as a snapshot, loads "xl-base",
      "animagineXL" and "xl-refiner" (bitwise, shared modules, one refiner
-     img2img) and runs the p2p shim's ``edit_real`` at 1024² (the NTI path
+     img2img through ``eval/validate.py validate_refiner``) and runs the
+     p2p shim's ``edit_real`` at 1024² (the NTI path
      with ``XL_INNER_STEPS`` inner iterations per step and the checkpointed
      UNet; p2z with the references recomputed from pass 1's trajectory and
      the checkpointed UNet, the XL defaults), decode full-frame and tiled;
@@ -1984,6 +1990,195 @@ def phase_serve_path(root, snapshot):
     return poll_launches[0] + solo_calls[("p2p_0",)][0][0]
 
 
+# the runway's UNet forwards per image of each method (one launch at every
+# self-attention site of each) and its backwards (p2z's guided steps): P2P,
+# MasaCtrl and PnP denoise once; p2z records the source (pass 1), then each
+# guided step runs a forward with its backward and a forward on the updated
+# latent
+VALIDATION_FORWARDS = {"p2p": 1, "masactrl": 1, "pnp": 1, "p2z": 3}
+VALIDATION_BACKWARDS = {"p2p": 0, "masactrl": 0, "pnp": 0, "p2z": 1}
+TOWER_RTOL = 1e-4  # the card's CLIP score and LPIPS against the same towers on the CPU, f32, relative
+CLIP_SEED = 5
+
+
+def validation_launches(sites, steps, methods, real):
+    """(forward, dQ, dK/dV) launches of ``validate_pipeline`` over
+    ``methods``: each method's synthesized edit, and with a ``real`` source
+    image one DDIM inversion shared by all methods and each method's edit
+    of it."""
+    edits = 2 if real else 1
+    fwd = sum(VALIDATION_FORWARDS[m] for m in methods) * edits + (1 if real else 0)
+    bwd = sum(VALIDATION_BACKWARDS[m] for m in methods) * edits
+    return sites * steps * fwd, sites * steps * bwd, sites * steps * bwd
+
+
+def write_clip_checkpoint(directory, words, device, seed=CLIP_SEED):
+    """A seeded random CLIP checkpoint in the shapes ``eval/metrics.py
+    CLIPScore`` builds (``models/clip.py``'s ``CLIPTextConfig`` with
+    ``CLIP_VIT_B32_VISION``'s projection, and that vision tower, read at
+    call time as the scorer reads them): ``model.safetensors`` (fp16, with
+    the text tower's ``position_ids``) and the synthetic BPE vocab that
+    makes ``words`` whole under ``tokenizer/``. Returns the bytes of tensor
+    data."""
+    import os
+
+    from image_editing_framework_torch.models import clip
+    from image_editing_framework_torch.pipelines import _build
+
+    vision_cfg = clip.CLIP_VIT_B32_VISION
+    text = _build(clip.CLIPTextModel, clip.CLIPTextConfig(projection_dim=vision_cfg.projection_dim), device,
+                  torch.float32, seed)
+    vision = _build(clip.CLIPVisionModel, vision_cfg, device, torch.float32, seed + 1)
+    os.makedirs(directory, exist_ok=True)
+    nbytes = write_safetensors(dict(text.state_dict(), **vision.state_dict(), **clip_position_ids()),
+                               os.path.join(directory, "model.safetensors"), torch.float16)
+    write_tokenizer(os.path.join(directory, "tokenizer"), *synthetic_clip_vocab(words, size=text.config.vocab_size))
+    return nbytes
+
+
+def write_lpips_weights(path):
+    """``eval/lpips.py LPIPS``'s seeded random net as one ``.safetensors``
+    file (f32) in the released artifacts' keys: torchvision's vgg16
+    ``features.N.{weight,bias}`` and LPIPS's ``linN.model.1.weight``.
+    Returns the bytes of tensor data."""
+    from image_editing_framework_torch.eval import lpips
+
+    state = lpips.LPIPS(None, device="cpu").net.state_dict()
+    tv = {}
+    for i, (_, idx) in enumerate(lpips._VGG16_CONVS):
+        tv[f"features.{idx}.weight"], tv[f"features.{idx}.bias"] = (state[f"vgg.conv_{i}.{leaf}"]
+                                                                    for leaf in ("weight", "bias"))
+    for i in range(len(lpips._TAPS)):
+        tv[f"lin{i}.model.1.weight"] = state[f"lin_{i}.weight"]
+    return write_safetensors(tv, path)
+
+
+def tower_err(card, cpu):
+    """|card - cpu| relative to |cpu| (0 where both are 0)."""
+    return abs(card - cpu) / abs(cpu) if cpu else abs(card)
+
+
+def phase_validation_path(root, snapshot):
+    """The validation runway (``eval/validate.py main``, its own entry
+    point) on the SD1.5 snapshot ``phase_checkpoint_path`` wrote into
+    ``root``, bf16, 512², 50 steps, all four methods, the synthesized source
+    image (``--source_image synth``), DDIM inversion, with a seeded random
+    CLIP checkpoint in ``CLIPScore``'s shapes (fp16, ~0.42 GB) and a seeded
+    random LPIPS file (VGG16 and the heads, f32, ~59 MB) written here.
+    Gates: ``report.json`` holds the four methods with 64-hex hashes of
+    every PNG; the reconstruction metrics are finite; CLIP scores in [0,
+    100], LPIPS finite and >= 0; exact launches (``validation_launches``);
+    the card's CLIP scores, unit CLIP embeddings and LPIPS within
+    ``TOWER_RTOL`` of the same towers on the CPU on the same images
+    (relative; the embeddings' distance); LPIPS(a, a) == 0 and LPIPS(a, b)
+    > 0 on the card. Readings: seconds per method and flow, the towers' ms
+    on the card, and whether a second ``--methods p2p`` run gives the same
+    hashes."""
+    import os
+
+    from image_editing_framework_torch.eval import validate
+    from image_editing_framework_torch.eval.lpips import LPIPS
+    from image_editing_framework_torch.eval.metrics import CLIPScore
+    from image_editing_framework_torch.utils.images import decode_png
+
+    side, sites = MODELS["sd"][2], SITES["sd"]
+    clip_dir, lpips_path = os.path.join(root, "clip"), os.path.join(root, "lpips.safetensors")
+    (clip_bytes, lpips_bytes), write_s = timed(lambda: (write_clip_checkpoint(clip_dir, CKPT_WORDS, "cuda"),
+                                                        write_lpips_weights(lpips_path)))
+    torch.cuda.empty_cache()
+    source, target = CKPT_PROMPTS
+
+    def runway(out, *more):
+        reset_launch_counts()
+        _, loads, seconds = timed_loads(lambda: validate.main(
+            ["--path", snapshot, "--sd_version", "1.5", "--resolution", str(side), "--source_image", "synth",
+             "--source_prompt", source, "--target_prompt", target, "--clip_checkpoint", clip_dir, "--lpips_weights",
+             lpips_path, "--out", out, *more]))
+        counts = launch_counts()
+        torch.cuda.empty_cache()
+        with open(os.path.join(out, "1.5", "report.json")) as f:
+            return json.load(f), counts, seconds, sum(s for _, _, s in loads)
+
+    def png(out, method, name):
+        with open(os.path.join(out, "1.5", method, name + ".png"), "rb") as f:
+            img = decode_png(f.read())
+        if img is None or img.shape != (side, side, 3) or img.dtype != np.uint8 or img.std() == 0:
+            raise AssertionError(f"validation {method}/{name}.png: {None if img is None else img.shape}, constant or "
+                                 f"misshapen")
+        return img
+
+    out = os.path.join(root, "validation")
+    report, counts, run_s, load_s = runway(out)
+    methods = validate.METHODS
+    expected = validation_launches(sites, STEPS, methods, real=True)
+    if counts != expected:
+        raise AssertionError(f"the runway launched (forward, dQ, dK/dV) {counts} times, expected {expected}")
+    if tuple(report["methods"]) != methods or report["num_steps"] != STEPS or report["backend"] != "cuda":
+        raise AssertionError(f"report.json: methods {list(report['methods'])}, {report['num_steps']} steps, backend "
+                             f"{report['backend']}")
+    hashes = ("syn_source_sha256", "syn_edit_sha256", "real_inversion_sha256", "real_edit_sha256")
+    for method, entry in report["methods"].items():
+        bad = [k for k in hashes if not re.fullmatch(r"[0-9a-f]{64}", entry.get(k, ""))]
+        bad += [k for k in ("recon_mse", "recon_psnr", "recon_ssim") if not math.isfinite(entry[k])]
+        bad += [k for k in ("syn_clip_score", "real_clip_score") if not 0.0 <= entry[k] <= 100.0]
+        if bad or not (math.isfinite(entry["recon_lpips"]) and entry["recon_lpips"] >= 0):
+            raise AssertionError(f"report.json {method}: {bad or 'recon_lpips'} out of range: {entry}")
+        for name in ("syn_source", "syn_edit", "real_inversion", "real_edit"):
+            png(out, method, name)
+
+    # the towers on the CPU, f32, on the same images (the PNGs are lossless):
+    # the report's scores and distances, and the unit embeddings (a random
+    # CLIP's cosines may be negative, which the score clamps to 0)
+    image = validate.synth_source_image(42, side)
+    cpu_clip, cpu_lpips = CLIPScore(clip_dir, device="cpu"), LPIPS(lpips_path, device="cpu")
+    card_clip, card_lpips = CLIPScore(clip_dir, device="cuda"), LPIPS(lpips_path, device="cuda")
+    towers, embeddings_err, cosines = {}, 0.0, {}
+    for method, entry in report["methods"].items():
+        edits = {flow: png(out, method, flow + "_edit")[None] for flow in ("syn", "real")}
+        got = {"syn_clip_score": cpu_clip(edits["syn"], [target]),
+               "real_clip_score": cpu_clip(edits["real"], [target]),
+               "recon_lpips": cpu_lpips(image[None], png(out, method, "real_inversion")[None])}
+        towers[method] = {k: dict(card=entry[k], cpu=v, rel_err=tower_err(entry[k], v)) for k, v in got.items()}
+        for flow, edit in edits.items():
+            on_card, on_cpu = card_clip.embeddings(edit, [target]), cpu_clip.embeddings(edit, [target])
+            embeddings_err = max([embeddings_err] + [float(torch.linalg.vector_norm(a.cpu() - b))
+                                                     for a, b in zip(on_card, on_cpu)])
+            cosines[f"{method}_{flow}"] = float((on_cpu[0] * on_cpu[1]).sum())
+    worst = max(t["rel_err"] for per in towers.values() for t in per.values())
+    if worst > TOWER_RTOL or embeddings_err > TOWER_RTOL:
+        raise AssertionError(f"the card's towers differ from the CPU's by {worst} relative, the unit embeddings by "
+                             f"{embeddings_err} (limit {TOWER_RTOL}): {towers}")
+    edit = png(out, "p2p", "real_edit")
+    same, apart = card_lpips(image[None], image[None]), card_lpips(image[None], edit[None])
+    if same != 0.0 or not apart > 0.0:
+        raise AssertionError(f"LPIPS(a, a) = {same}, LPIPS(a, b) = {apart} on the card")
+    px = torch.from_numpy(edit[None])
+    tower_ms = {"clip_score_1x512": cuda_ms(lambda: card_clip.scores(px, [target])),
+                "lpips_1x512": cuda_ms(lambda: card_lpips.distances(image[None], edit[None]))}
+    del card_clip, card_lpips
+    torch.cuda.empty_cache()
+
+    # a second run of P2P alone: do its hashes repeat the first run's? (a reading)
+    out2 = os.path.join(root, "validation_p2p")
+    report2, rerun_counts, rerun_s, _ = runway(out2, "--methods", "p2p")
+    if rerun_counts != validation_launches(sites, STEPS, ("p2p",), real=True):
+        raise AssertionError(f"the P2P rerun launched (forward, dQ, dK/dV) {rerun_counts} times")
+    rerun_same = {k: report2["methods"]["p2p"][k] == report["methods"]["p2p"][k] for k in hashes}
+    emit("validation_path", model="SD1.5 (random weights, seed 0, from the fp16 snapshot, bf16)", resolution=side,
+         dtype="bfloat16", steps=STEPS, methods=list(methods), write_s=write_s, clip_gb=clip_bytes / 1e9,
+         lpips_mb=lpips_bytes / 1e6, run_s=run_s, load_s=load_s,
+         syn_s={m: e["syn_elapsed_s"] for m, e in report["methods"].items()},
+         real_s={m: e["real_elapsed_s"] for m, e in report["methods"].items()},
+         launches=counts, towers_card_vs_cpu=towers, towers_worst_rel_err=worst, tower_rtol=TOWER_RTOL,
+         clip_embeddings_max_err=embeddings_err, clip_cosines_cpu=cosines,
+         lpips_same=same, lpips_apart=apart, tower_ms=tower_ms,
+         recon={m: {k: e[k] for k in ("recon_mse", "recon_psnr", "recon_ssim", "recon_lpips")}
+                for m, e in report["methods"].items()},
+         rerun_s=rerun_s, rerun_launches=rerun_counts, rerun_same_hashes=rerun_same,
+         main_path_image_s=EMITTED["main_path"]["image_s"], card=card_line())
+    return counts, rerun_counts
+
+
 def phase_xl_checkpoint_path(pipe):
     """SDXL base and refiner from checkpoints on the card, bf16: ``pipe``'s
     weights (``random_pipeline("xl", seed=0)``) written fp16 as an HF
@@ -1992,13 +2187,15 @@ def phase_xl_checkpoint_path(pipe):
     "xl-base" (the snapshot) and "animagineXL" (the single file), bitwise
     equal to each other and to the weights through fp16; then "xl-refiner"
     (the base a third time with the refiner attached), which must share the
-    base's VAE, bigG tower and tokenizer, and one refiner img2img on it;
+    base's VAE, bigG tower and tokenizer, and one refiner img2img on it
+    through the runway's ``validate_refiner`` (hashes and structure metrics
+    in its report);
     then the p2p shim's ``edit_real`` with DDIM inversion at 1024², exact
     launches. Each pipe is freed before the next load."""
     import os
 
     from image_editing_framework_torch import cli, sd_mapping, shims
-    from image_editing_framework_torch.methods.img2img import img2img
+    from image_editing_framework_torch.eval.validate import validate_refiner
     from image_editing_framework_torch.models import configs
     from image_editing_framework_torch.models.unet import UNet2DCondition
     from image_editing_framework_torch.pipelines import _build
@@ -2041,15 +2238,20 @@ def phase_xl_checkpoint_path(pipe):
             image = (np.random.RandomState(2).rand(side, side, 3) * 255).astype(np.uint8)
             ref_sites = refiner.unet.config.num_transformer_blocks
             reset_launch_counts()
-            refined, refine_s = timed(lambda: img2img(refiner, image, CKPT_PROMPTS[0], strength=0.3,
-                                                      generator=torch.Generator(device=pipe.device).manual_seed(0)))
+            refine, refine_s = timed(lambda: validate_refiner(refiner, os.path.join(tmp, "refine"), image,
+                                                              CKPT_PROMPTS[0], strength=0.3, seed=0))
             refine_counts = launch_counts()
             forwards = STEPS - int(STEPS * (1.0 - 0.3))
             if refine_counts != (ref_sites * forwards, 0, 0):
                 raise AssertionError(f"the loaded refiner launched (forward, dQ, dK/dV) {refine_counts} times, "
                                      f"expected {ref_sites} x {forwards} forward")
-            if refined.shape != (1, side, side, 3) or refined.dtype != np.uint8 or refined.std() == 0:
-                raise AssertionError(f"refiner output {refined.shape} {refined.dtype} constant or misshapen")
+            with open(os.path.join(tmp, "refine", "refined.png"), "rb") as f:
+                refined = decode_png(f.read())
+            if refined is None or refined.shape != (side, side, 3) or refined.std() == 0 or not all(
+                    re.fullmatch(r"[0-9a-f]{64}", refine[k]) for k in ("source_sha256", "refined_sha256")) or not (
+                    math.isfinite(refine["refine_ssim"])):
+                raise AssertionError(f"refiner output {None if refined is None else refined.shape} constant or "
+                                     f"misshapen, or its report {refine}")
             del both, refiner, refiner_unet
             torch.cuda.empty_cache()
 
@@ -2089,6 +2291,8 @@ def phase_xl_checkpoint_path(pipe):
          written_gb={name: nbytes / 1e9 for name, (_, nbytes) in written.items()},
          write_gb_per_s=sum(nbytes for _, nbytes in written.values()) / 1e9 / write_s, loads=loads,
          loads_bitwise_equal=True, refiner_shares=shared, refine_s=refine_s, refine_flash_launches=refine_counts[0],
+         refine_report={k: refine[k] for k in ("elapsed_s", "source_sha256", "refined_sha256", "refine_mse",
+                                                "refine_psnr", "refine_ssim")},
          edit_real=dict(seconds=run_s, load_s=run_load_s, image_s=run_s - run_load_s, flash_launches=counts[0],
                         image_means=means),
          xl_main_path_image_s=EMITTED["xl_main_path"]["image_s"], card=card_line())
@@ -2168,7 +2372,7 @@ def phase_nti_path(model, pipe):
          image_s=invert_s + edit_s, nti_share=marks["nti_s"] / (invert_s + edit_s), inner_iterations=j,
          nti_launches=nti_counts, launches=counts, uncond_moved=float((uncond_seq[-1] - uncond_seq[0]).abs().max()),
          peak_gib=torch.cuda.max_memory_allocated() / 2**30, image_mean=float(images.mean()), card=card_line())
-    return counts, (last, uncond_seq)
+    return counts, (last, uncond_seq, traj)
 
 
 def phase_profile(model, pipe, lat4, ctx, added):
@@ -2294,6 +2498,11 @@ def phase_pnp_path(model, pipe, inversion):
 
 # the guided step phase_p2z_path times alone
 P2Z_PROBE_STEP = 25
+# SDXL's p2z edit on the NTI path's embeddings takes every 5th step of the 50
+# (10 guided steps from the inversion's latent at that schedule's first
+# timestep, with the embeddings of its steps): a depth cut that keeps the
+# phases inside their time budget on slower hosts
+XL_P2Z_NTI_STRIDE = 5
 
 
 def phase_p2z_path(model, pipe, nti):
@@ -2303,7 +2512,8 @@ def phase_p2z_path(model, pipe, nti):
     in pass 1; SDXL: recomputed from pass 1's trajectory, the checkpointed
     UNet by the auto rule at latent side 128); then the edit alone on
     ``phase_nti_path``'s inversion and embeddings (their swap in both
-    passes). Per run: seconds of pass 1, pass 2 and the decodes, exact
+    passes; on SDXL over every ``XL_P2Z_NTI_STRIDE``-th step of the
+    schedule). Per run: seconds of pass 1, pass 2 and the decodes, exact
     launch counts, the loss of the first and last guided step. Then one
     guided step (step ``P2Z_PROBE_STEP`` from the inverted latent, SDXL's
     recomputed references included) timed alone and under torch.profiler,
@@ -2314,6 +2524,7 @@ def phase_p2z_path(model, pipe, nti):
 
     from image_editing_framework_torch import cli
     from image_editing_framework_torch.core.config import P2ZConfig, SamplerConfig
+    from image_editing_framework_torch.core.scheduler import make_ddim_schedule
     from image_editing_framework_torch.methods import common, p2z
     from image_editing_framework_torch.methods.base import _step_context
 
@@ -2341,7 +2552,7 @@ def phase_p2z_path(model, pipe, nti):
             return out
         return call
 
-    runs = {}
+    runs, full_schedule = {}, pipe.scheduler
     # pass 1's final latent only: its recorded references go before the decodes
     p2z.denoise, p2z._guided_scan = measured("pass1", denoise, keep=lambda out: out[0]), measured("pass2", guided)
     pipe.latent2image = measured("decode", decode, keep=lambda out: None)
@@ -2350,15 +2561,23 @@ def phase_p2z_path(model, pipe, nti):
         reset_launch_counts()
         (last, _, _), invert_s = timed(lambda: cli.invert(pipe, image, PROMPTS[0], "ddim", "p2z"))
         inv_counts = launch_counts()
-        for label, start, uncond in (("ddim", last, None), ("nti", nti[0], nti[1])):
+        # every stride-th step of the schedule: its k-th step is the full
+        # schedule's step stride * k + stride - 1, whose latent the inversion
+        # trajectory holds at index STEPS - (stride - 1)
+        stride = XL_P2Z_NTI_STRIDE if xl else 1
+        traj, uncond_seq = nti[2], nti[1]
+        for label, start, uncond, steps in (
+                ("ddim", last, None, STEPS),
+                ("nti", traj[STEPS + 1 - stride], uncond_seq[stride - 1::stride], STEPS // stride)):
             marks.clear()
             torch.cuda.reset_peak_memory_stats()
             reset_launch_counts()
+            pipe.scheduler = full_schedule if steps == STEPS else make_ddim_schedule(steps)
             images, edit_s = timed(lambda: cli.run_method("p2z", pipe, PROMPTS, start, sampler, uncond_seq=uncond))
-            runs[label] = dict(marks, edit_s=edit_s, launches=launch_counts(), images=images,
+            runs[label] = dict(marks, edit_s=edit_s, launches=launch_counts(), images=images, steps=steps,
                                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     finally:
-        p2z.denoise, p2z._guided_scan = denoise, guided
+        p2z.denoise, p2z._guided_scan, pipe.scheduler = denoise, guided, full_schedule
         del pipe.latent2image
 
     if inv_counts != (sites * STEPS, 0, 0):
@@ -2366,18 +2585,20 @@ def phase_p2z_path(model, pipe, nti):
     expected = (sites * STEPS + per_step * STEPS, sites * STEPS, sites * STEPS)
     lines = {}
     for label, run in runs.items():
-        (final, losses), final_src = run["pass2"], run["pass1"]
-        if run["launches"] != expected or run["pass2_launches"] != (per_step * STEPS,) + expected[1:]:
+        (final, losses), final_src, steps = run["pass2"], run["pass1"], run["steps"]
+        want = tuple(n // STEPS * steps for n in expected)  # each count is per step
+        if run["launches"] != want or run["pass2_launches"] != (per_step * steps,) + want[1:]:
             raise AssertionError(f"p2z {label} on {model} launched (forward, dQ, dK/dV) {run['launches']} times "
-                                 f"(pass 2: {run['pass2_launches']}), expected {expected}")
+                                 f"(pass 2: {run['pass2_launches']}), expected {want}")
         moved = (final.float() - final_src.float()).abs().max().item()
-        if not (torch.isfinite(losses).all() and losses.shape == (STEPS,) and math.isfinite(moved) and moved > 0):
+        if not (torch.isfinite(losses).all() and losses.shape == (steps,) and math.isfinite(moved) and moved > 0):
             raise AssertionError(f"p2z {label} on {model}: losses {losses}, edit moved {moved} from pass 1")
         if any(x.shape != (side, side, 3) or x.dtype != np.uint8 or x.std() == 0 for x in run["images"]):
             raise AssertionError(f"p2z {label} output constant or misshapen")
         lines[label] = dict(
             pass1_s=run["pass1_s"], pass2_s=run["pass2_s"], decode_s=run["decode_s"], edit_and_decode_s=run["edit_s"],
-            guided_step_s=run["pass2_s"] / STEPS, launches=run["launches"], pass2_launches=run["pass2_launches"],
+            steps=steps, guided_step_s=run["pass2_s"] / steps, launches=run["launches"],
+            pass2_launches=run["pass2_launches"],
             loss_first=losses[0].item(), loss_last=losses[-1].item(), edit_moved_from_source=moved,
             image_means=[float(x.mean()) for x in run["images"]], peak_gib=run["peak_gib"])
     lines["ddim"].update(invert_s=invert_s, image_s=invert_s + runs["ddim"]["edit_s"],
@@ -2385,7 +2606,7 @@ def phase_p2z_path(model, pipe, nti):
                          inversion_launches=inv_counts)
     tag = "p2z_path" if model == "sd" else "xl_p2z_path"
     for label, line in lines.items():
-        emit(tag, run=label, model=f"{name} (random weights, seed 0)", resolution=side, dtype="bfloat16", steps=STEPS,
+        emit(tag, run=label, model=f"{name} (random weights, seed 0)", resolution=side, dtype="bfloat16",
              recompute_refs=xl, checkpointed_unet=checkpointed, inversion="DDIM" if label == "ddim" else
              "phase_nti_path's NTI (edit only)", **line, card=card_line())
 
@@ -2493,6 +2714,8 @@ def main() -> int:
                 launches["checkpoint"], snapshot = run("checkpoint_path", phase_checkpoint_path, profile_args[0], tmp)
                 launches["sweep"], sweep_runs = run("sweep_path", phase_sweep_path, tmp, snapshot)
                 launches["serve"] = run("serve_path", phase_serve_path, tmp, snapshot)
+                validation = run("validation_path", phase_validation_path, tmp, snapshot)
+                launches["validation"], launches["validation_rerun"] = (counts[0] for counts in validation)
         else:
             launches["xl_checkpoint"] = run("xl_checkpoint_path", phase_xl_checkpoint_path, profile_args[0])
         nti_counts, nti = run(prefix + "nti_path", phase_nti_path, model, profile_args[0])
@@ -2537,11 +2760,13 @@ def main() -> int:
         "name": f"flash_bwd_{kernel}", "route": "cuda", "source": "image_editing_framework_torch/csrc/flash_bwd.cu",
         "replaces": f"{tpu}:{line}", "also_replaces": f"{tpu}:{line_t}",
         "launches": sum(counts[i] for counts in bwd_launches.values())
-        + sum(counts[i + 1] for runs in p2z_runs.values() for counts in runs.values()),
+        + sum(counts[i + 1] for runs in p2z_runs.values() for counts in runs.values())
+        + sum(counts[i + 1] for counts in validation),
         "launches_by_path": {"nti_path": bwd_launches["sd"][i], "xl_nti_path": bwd_launches["xl"][i],
                              "masactrl_path": 0, "xl_masactrl_path": 0, "pnp_path": 0, "xl_pnp_path": 0,
                              "p2z_path": sum(counts[i + 1] for counts in p2z_runs["sd"].values()),
-                             "xl_p2z_path": sum(counts[i + 1] for counts in p2z_runs["xl"].values())},
+                             "xl_p2z_path": sum(counts[i + 1] for counts in p2z_runs["xl"].values()),
+                             "validation_path": validation[0][i + 1], "validation_rerun": validation[1][i + 1]},
         "max_abs_err": bwd_worst[torch.bfloat16][kernel], "max_abs_err_f32": bwd_worst[torch.float32][kernel],
         **at(bwd_sums["sd"][kernel], *device), "work": work["sd"],
         "at_xl": dict(at(bwd_sums["xl"][kernel], *device), work=work["xl"]),
@@ -2573,6 +2798,8 @@ def main() -> int:
         "launches": sum(launches.values()),
         "launches_by_path": {"main_path": launches["sd"], "checkpoint_path": launches["checkpoint"],
                              "sweep_path": launches["sweep"], "serve_path": launches["serve"],
+                             "validation_path": launches["validation"],
+                             "validation_rerun": launches["validation_rerun"],
                              "sweep_batched_run": sweep_runs["d"], "xl_main_path": launches["xl"],
                              "xl_checkpoint_path": launches["xl_checkpoint"],
                              "masactrl_path": launches["masactrl"], "xl_masactrl_path": launches["xl_masactrl"],

@@ -13,8 +13,9 @@ HF-snapshot directories and single-file LDM checkpoints by
 its PIE-Bench sweep (``test`` / ``cli.test_main``: ``data/pie.py``, the
 inversion cache, ``eval/metrics.py`` MSE / PSNR / SSIM, ``eval/sweep.py``,
 one image at a time or in batched groups), the batched editors
-(``eval/batched.py``, batched null-text inversion) and the editing service
-(``serve.py``).
+(``eval/batched.py``, batched null-text inversion), the editing service
+(``serve.py``), and the quality metrics with the validation runway (the
+CLIP vision tower, ``CLIPScore``, LPIPS, ``eval/validate.py``).
 
 Importing the package imports nothing heavy: the top-level API below is
 resolved on first access, as the JAX package's is.

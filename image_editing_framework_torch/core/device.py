@@ -7,7 +7,8 @@ raise instead of carrying on silently on the CPU.
 
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import Iterator, Union
 
 import torch
 
@@ -21,3 +22,17 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available: pass device='cpu' to run on the CPU")
     return device
+
+
+@contextlib.contextmanager
+def true_f32() -> Iterator[None]:
+    """Float32 products and convolutions in true float32 while the block
+    runs: TF32 off in cuBLAS and in cuDNN (where it is on by default), the
+    caller's settings restored after. The quality metrics' towers run in
+    it, as the JAX package runs them in float32."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

@@ -20,8 +20,10 @@ As in the JAX package:
 In the port the kernels or their plain versions are picked by the tensors'
 device (there is no ``use_flash``), and ``device_peak_bytes`` is the card's
 ``torch.cuda.max_memory_allocated``. Only the calling thread touches the
-card: the worker threads decode and encode PNG/JPEG and compute the metrics
-on host arrays.
+card: the worker threads decode and encode PNG/JPEG and compute the
+structure metrics on host arrays, while the CLIP score and LPIPS towers
+run on the calling thread, on the pipeline's device, after each image's or
+group's edit (one tower call for a group).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from image_editing_framework_torch.core.config import P2PConfig, SamplerConfig
 from image_editing_framework_torch.data.pie import DEFAULT_CATEGORIES, PIE, PIEPrecomputedInversion, save_inversion
 from image_editing_framework_torch.eval import batched
 from image_editing_framework_torch.eval import metrics as qmetrics
+from image_editing_framework_torch.eval.lpips import LPIPS
 from image_editing_framework_torch.utils.images import load_image, save_img
 
 
@@ -137,13 +140,16 @@ def run_sweep(
     and the steady-state stats leave out the first group. The next group's
     images are decoded while the card computes.
 
-    Not ported yet: the CLIP score and LPIPS metrics (``clip_checkpoint``,
-    ``lpips_weights``: ROADMAP.md A3); each raises NotImplementedError."""
+    With ``record_metrics``, each image's row holds MSE / PSNR / SSIM of its
+    reconstruction against its source and, when their weights are given,
+    ``clip_score_edit`` (``eval/metrics.py CLIPScore`` of the edit against
+    the target prompt; ``clip_checkpoint`` is a CLIP checkpoint directory)
+    and ``lpips_src_edit`` (``eval/lpips.py LPIPS`` of source against edit;
+    ``lpips_weights`` a state dict of its net or the path of one
+    ``.safetensors`` file). A tower that fails counts as a failed metric, as
+    on the JAX package's metric threads."""
     if batch_size > 1 and inversion_type not in INVERSION_TYPES:
         raise ValueError("batched sweep supports ddim/null-text/direct inversion")
-    if clip_checkpoint or lpips_weights is not None:
-        raise NotImplementedError("the sweep's CLIP score and LPIPS metrics (clip_checkpoint, lpips_weights) are "
-                                  "not ported yet: ROADMAP.md A3")
     from image_editing_framework_torch.cli import invert, run_method
 
     res = resolution or (1024 if pipe.model_type == "xl" else 512)
@@ -180,6 +186,35 @@ def run_sweep(
             "source-branch replay is NOT applied — the sweep runs plain ddim editing "
             "(stats['inversion_type_effective'] records this)", stacklevel=2)
 
+    clip_scorer = lpips_fn = None
+    if record_metrics:
+        if clip_checkpoint:
+            clip_scorer = qmetrics.CLIPScore(clip_checkpoint, device=pipe.device)
+        if lpips_weights is not None:
+            lpips_fn = LPIPS(lpips_weights, device=pipe.device)
+    tower_errors = []
+
+    def tower_rows(group, images, imgs):
+        """Each image's CLIP score and LPIPS, one call of each tower for the
+        group, on the calling thread; a failure is recorded once for each
+        image of the group (as a failed metric task per image is), not
+        raised, and the images' rows go on without the towers."""
+        rows = [{} for _ in group]
+        if clip_scorer is None and lpips_fn is None:
+            return rows
+        try:
+            edits = np.stack([np.asarray(edit) for _, edit in imgs])
+            if clip_scorer is not None:
+                for row, v in zip(rows, clip_scorer.scores(edits, [it.target_prompt for it in group]).tolist()):
+                    row["clip_score_edit"] = v
+            if lpips_fn is not None:
+                for row, v in zip(rows, lpips_fn.distances(np.stack(images), edits).tolist()):
+                    row["lpips_src_edit"] = v
+        except Exception as e:  # noqa: BLE001 — a metric failure; the stats record it
+            tower_errors.extend([e] * len(group))
+            return [{} for _ in group]
+        return rows
+
     pool = ThreadPoolExecutor(max_workers=8)
     # the metrics on their own two workers, so that queued metric tasks never
     # hold up the next image's decode on the IO pool
@@ -189,7 +224,7 @@ def run_sweep(
     def save_async(img, path):
         save_futures.append(pool.submit(save_img, img, path))
 
-    def _metrics_and_log(src_img, inv_img, rec):
+    def _metrics_and_log(src_img, inv_img, rec, towers):
         if record_metrics:
             row = {}
             # a cache may hold latents at another resolution than this sweep
@@ -198,6 +233,7 @@ def run_sweep(
                 row.update({"recon_mse": qmetrics.mse(src_img, inv_img),
                             "recon_psnr": qmetrics.psnr(src_img, inv_img),
                             "recon_ssim": qmetrics.ssim(src_img, inv_img)})
+            row.update(towers)
             metric_rows.append(row)
             rec.update(_json_safe_metrics(row))
         # one whole line per open-append-close: lines stay whole under the
@@ -205,14 +241,14 @@ def run_sweep(
         with open(event_log, "a") as f:
             f.write(json.dumps(rec) + "\n")
 
-    def finish(item, src_img, inv_img, edit_img, elapsed):
+    def finish(item, src_img, inv_img, edit_img, elapsed, towers):
         out_dir = os.path.join(exp_path, item.key)
         save_async(inv_img, os.path.join(out_dir, "inversion.png"))
         save_async(edit_img, os.path.join(out_dir, "edit.png"))
         times.append(elapsed)
         rec = {"key": item.key, "elapsed_s": round(elapsed, 3), "source_prompt": item.source_prompt,
                "target_prompt": item.target_prompt}
-        metric_futures.append(metric_pool.submit(_metrics_and_log, src_img, inv_img, rec))
+        metric_futures.append(metric_pool.submit(_metrics_and_log, src_img, inv_img, rec, towers))
 
     try:
         cache = None
@@ -260,8 +296,8 @@ def run_sweep(
                 imgs = [run_method(method, pipe, [item.source_prompt, item.target_prompt], latent, sampler,
                                    uncond_seq, kw, source_replay=replay)]
             elapsed = (time.perf_counter() - t0) / len(group)
-            for item, image, (inv_img, edit_img) in zip(group, images, imgs):
-                finish(item, image, inv_img, edit_img, elapsed)
+            for item, image, (inv_img, edit_img), row in zip(group, images, imgs, tower_rows(group, images, imgs)):
+                finish(item, image, inv_img, edit_img, elapsed, row)
             done += len(group)
     finally:
         pool.shutdown(wait=True)  # drain the workers even when an image failed
@@ -271,7 +307,7 @@ def run_sweep(
     # errors are recorded in the stats, the stats file is written, and then
     # a save error raises (missing outputs are a failed sweep) while a
     # metric or event-log error only warns.
-    save_errors, metric_errors = [], []
+    save_errors, metric_errors = [], list(tower_errors)
     for futures, errors in ((save_futures, save_errors), (metric_futures, metric_errors)):
         for fut in futures:
             try:

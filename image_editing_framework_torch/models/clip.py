@@ -1,12 +1,20 @@
-"""CLIP text encoders (OpenAI CLIP ViT-L/14, OpenCLIP ViT-H / bigG).
+"""CLIP text encoders (OpenAI CLIP ViT-L/14, OpenCLIP ViT-H / bigG) and the
+CLIP ViT vision tower of the CLIP-score metric.
 
-Counterpart of ``CLIPTextModel`` in ``image_editing_framework_tpu/models/clip.py``.
+Counterpart of ``image_editing_framework_tpu/models/clip.py``.
 Module and parameter names follow transformers' ``CLIPTextModel``, so
 ``state_dict()`` keys are its keys. The attention (77 tokens, causal) is
 plain tensor code, as in JAX. Output conventions: SD1.x and SD2.1 take the
 last hidden state (CLIP-L with quick_gelu; a 23-layer OpenCLIP-H with exact
 gelu); SDXL takes CLIP-L's and bigG's penultimate hidden states side by side
 and bigG's projected pooled embedding.
+
+The vision tower (``CLIPVisionModel``) follows transformers'
+``CLIPVisionModelWithProjection``: its ``state_dict()`` keys are that
+model's (with the upstream ``pre_layrnorm`` spelling), and its layers are
+the text tower's ``CLIPLayer`` with every key visible to every query.
+``clip_preprocess`` resizes with JAX's antialiased bicubic filter
+(``utils/images.py resize``).
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from image_editing_framework_torch.utils.images import resize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,3 +162,90 @@ class CLIPTextModel(nn.Module):
         if cfg.projection_dim is not None:
             pooled = self.text_projection(pooled)
         return {"last_hidden_state": last, "penultimate": penultimate, "pooled": pooled}
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig:
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    image_size: int = 224
+    patch_size: int = 32
+    hidden_act: str = "quick_gelu"
+    projection_dim: int = 512
+
+
+CLIP_VIT_B32_VISION = CLIPVisionConfig()  # the standard CLIP-score backbone
+
+TINY_CLIP_VISION = CLIPVisionConfig(
+    hidden_size=32, num_layers=2, num_heads=2, intermediate_size=64,
+    image_size=32, patch_size=16, projection_dim=32,
+)
+
+# CLIP image preprocessing constants (OpenAI).
+CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+class _VisionEmbeddings(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        self.class_embedding = nn.Parameter(torch.empty(cfg.hidden_size))
+        # patch embedding: a convolution at stride = patch, no bias (transformers parity)
+        self.patch_embedding = nn.Conv2d(3, cfg.hidden_size, cfg.patch_size, stride=cfg.patch_size, bias=False)
+        self.position_embedding = nn.Embedding((cfg.image_size // cfg.patch_size) ** 2 + 1, cfg.hidden_size)
+
+
+class _VisionTransformer(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        self.embeddings = _VisionEmbeddings(cfg)
+        self.pre_layrnorm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+        self.encoder = _Encoder(CLIPTextConfig(
+            hidden_size=cfg.hidden_size, num_layers=cfg.num_layers, num_heads=cfg.num_heads,
+            intermediate_size=cfg.intermediate_size, hidden_act=cfg.hidden_act,
+        ))
+        self.post_layernorm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+
+
+class CLIPVisionModel(nn.Module):
+    """CLIP ViT vision tower with its projection (for the CLIP-score metric;
+    the reference computes no metrics)."""
+
+    def __init__(self, config: CLIPVisionConfig):
+        super().__init__()
+        self.config = config
+        self.vision_model = _VisionTransformer(config)
+        self.visual_projection = nn.Linear(config.hidden_size, config.projection_dim, bias=False)
+
+    def forward(self, pixel_values: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """pixel_values: (B, H, W, 3) NHWC, CLIP-normalized.
+
+        Returns dict with 'pooled' (B, hidden) post-LN class embedding and
+        'image_embeds' (B, projection_dim).
+        """
+        vm = self.vision_model
+        emb = vm.embeddings
+        b = pixel_values.shape[0]
+        x = emb.patch_embedding(pixel_values.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
+        x = torch.cat([emb.class_embedding.expand(b, 1, -1), x], dim=1)
+        n = x.shape[1]
+        x = vm.pre_layrnorm(x + emb.position_embedding.weight[None, :n])
+        everyone = torch.ones((n, n), dtype=torch.bool, device=x.device)[None, None]
+        for layer in vm.encoder.layers:
+            x = layer(x, everyone)
+        pooled = vm.post_layernorm(x[:, 0])
+        return {"pooled": pooled, "image_embeds": self.visual_projection(pooled)}
+
+
+def clip_preprocess(images: torch.Tensor, image_size: int = 224) -> torch.Tensor:
+    """uint8 (B, H, W, 3) -> CLIP-normalized float32 (B, image_size,
+    image_size, 3), NHWC, on ``images``' device: JAX's antialiased bicubic
+    resize of the [0, 1] image (``utils/images.py resize``), then the
+    per-channel mean and standard deviation."""
+    x = images.to(torch.float32) / 255.0
+    x = resize(x, (x.shape[0], image_size, image_size, 3), "bicubic")
+    mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=torch.float32, device=x.device)
+    std = torch.tensor(CLIP_IMAGE_STD, dtype=torch.float32, device=x.device)
+    return (x - mean) / std

@@ -6,6 +6,13 @@ five row filters), so a PNG source at the model's resolution, and every
 save, needs no Pillow. A JPEG, any other PNG flavour, or a resize imports
 Pillow inside the call and, where it is missing, raises ImportError naming
 the file and what it needed: it never returns a different image.
+
+``resize`` is ``jax.image.resize`` with the Keys cubic kernel (``"cubic"``,
+``"bicubic"``), which the JAX package's CLIP preprocessing and synthetic
+source image use: the same weight matrices as JAX's
+``jax/_src/image/scale.py compute_weight_mat``, applied as two products in
+float32 on the tensor's device. torch's own ``"bicubic"`` is another filter
+(a = -0.75, edges clamped, another antialiasing).
 """
 
 from __future__ import annotations
@@ -14,9 +21,10 @@ import math
 import os
 import struct
 import zlib
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {2: 3, 6: 4}  # PNG colour type -> channels: truecolour, truecolour with alpha
@@ -102,6 +110,54 @@ def decode_png(data: bytes) -> Optional[np.ndarray]:
             raise ValueError(f"PNG row {y} has filter type {kind}")
         out[y] = prev = x
     return out.reshape(h, w, c)
+
+
+_CUBIC = ("cubic", "bicubic")
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel (a = -0.5) at float32 distances
+    ``x`` >= 0, JAX's polynomials op by op."""
+    near = ((1.5 * x - 2.5) * x) * x + 1.0
+    far = ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0
+    return np.where(x >= 2.0, 0.0, np.where(x >= 1.0, far, near)).astype(np.float32)
+
+
+def resize_weights(in_size: int, out_size: int, antialias: bool = True) -> np.ndarray:
+    """(in_size, out_size) float32 weights of one axis of a cubic resize,
+    JAX's ``compute_weight_mat`` computed op by op in float32 (as JAX runs
+    it eagerly, and compiled without XLA's optimisations; the optimising
+    compiler fuses multiply-adds and lands up to ~3e-6 away): half-pixel
+    sample positions, the kernel widened by the downscale factor when
+    ``antialias`` (a low-pass filter), each output's weights divided by
+    their sum over the taps inside the image, and outputs whose sample
+    falls outside the image set to 0."""
+    inv_scale = 1.0 / (out_size / in_size)
+    kernel_scale = np.float32(max(inv_scale, 1.0) if antialias else 1.0)
+    sample = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * np.float32(inv_scale) - np.float32(0.5)
+    weights = _keys_cubic(np.abs(sample[None, :] - np.arange(in_size, dtype=np.float32)[:, None]) / kernel_scale)
+    total = weights.sum(axis=0, keepdims=True)
+    weights = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                       weights / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], weights, 0).astype(np.float32)
+
+
+def resize(image: torch.Tensor, shape: Sequence[int], method: str = "cubic", antialias: bool = True) -> torch.Tensor:
+    """``jax.image.resize(image, shape, method, antialias)`` for the cubic
+    methods: every axis whose size changes is resampled by one float32
+    product with its ``resize_weights`` on ``image``'s device; the others
+    are left as they are."""
+    if method not in _CUBIC:
+        raise ValueError(f"resize supports the cubic methods {_CUBIC}, got {method!r}")
+    if len(shape) != image.dim():
+        raise ValueError(f"shape {tuple(shape)} has another rank than the image {tuple(image.shape)}")
+    x = image.to(torch.float32)
+    for d, (m, n) in enumerate(zip(image.shape, shape)):
+        if m != n:
+            w = torch.from_numpy(resize_weights(m, n, antialias)).to(x.device)
+            x = torch.movedim(torch.movedim(x, d, -1) @ w, -1, d)
+    return x
 
 
 def _pillow(path: str, need: str):

@@ -479,3 +479,88 @@ def test_tiny_batched_rehearses_on_the_cpu():
     assert len(out) + len(seqs) == 9 and stops[0] == smoke.TINY_NTI_STOPS
     for name, (group, alone) in list(out.items()) + list(seqs.items()):
         assert (group - alone).abs().max().item() < 1e-3, name
+
+
+def test_validation_launch_arithmetic():
+    """The validation phase's exact launch counts at SD1.5 512², 50 steps:
+    the four methods' synthesized edits (P2P, MasaCtrl and PnP 50 forwards
+    each, p2z 150 and 50 backwards), one DDIM inversion shared by the four
+    real-image edits, and those edits again: 10 400 forward and 1 600 of
+    each backward; the P2P rerun 2 400 forward."""
+    from image_editing_framework_torch.eval.validate import METHODS
+
+    smoke = _load_script()
+    sites, steps = smoke.SITES["sd"], smoke.STEPS
+    assert smoke.validation_launches(sites, steps, METHODS, real=True) == (10400, 1600, 1600)
+    assert smoke.validation_launches(sites, steps, ("p2p",), real=True) == (2400, 0, 0)
+    assert smoke.validation_launches(sites, steps, METHODS, real=False) == (4800, 800, 800)
+    assert set(smoke.VALIDATION_FORWARDS) == set(smoke.VALIDATION_BACKWARDS) == set(METHODS)
+
+
+def test_chip_smoke_wires_the_validation_path():
+    """main() runs the validation phase on the SD1.5 snapshot after the
+    serve phase and before the NTI path, and the kernels line counts its
+    launches (the forward's and both backwards'); the loaded refiner's
+    img2img goes through the runway's ``validate_refiner``; the runway's
+    prompts are whole tokens of the snapshot's synthetic vocab."""
+    import inspect
+
+    smoke = _load_script()
+    source = inspect.getsource(smoke.main)
+    assert source.index("phase_serve_path") < source.index("phase_validation_path") < source.index("phase_nti_path")
+    assert '"validation_path": launches["validation"]' in source
+    assert '"validation_rerun": launches["validation_rerun"]' in source
+    assert '"validation_path": validation[0][i + 1]' in source
+    assert "validate_refiner(" in inspect.getsource(smoke.phase_xl_checkpoint_path)
+    phase = inspect.getsource(smoke.phase_validation_path)
+    assert "validate.main(" in phase and '"--methods", "p2p"' in phase and "TOWER_RTOL" in phase
+    assert set(" ".join(smoke.CKPT_PROMPTS).split()) <= set(smoke.CKPT_WORDS)
+    assert smoke.TOWER_RTOL == 1e-4
+
+
+def test_clip_checkpoint_writer_gives_clip_scores_shapes(tmp_path, monkeypatch):
+    """The phase's random CLIP checkpoint loads into ``CLIPScore`` (here at
+    a tiny width patched into ``models/clip.py``, as the scorer and the
+    writer both read it there) and scores in [0, 100]."""
+    import dataclasses
+    import functools
+
+    from image_editing_framework_torch.eval.metrics import CLIPScore
+    from image_editing_framework_torch.models import clip
+
+    monkeypatch.setattr(clip, "CLIP_VIT_B32_VISION", dataclasses.replace(clip.TINY_CLIP_VISION, image_size=224,
+                                                                         patch_size=32))
+    monkeypatch.setattr(clip, "CLIPTextConfig", functools.partial(clip.CLIPTextConfig, vocab_size=1024,
+                                                                  hidden_size=32, num_layers=2, num_heads=2,
+                                                                  intermediate_size=64))
+    smoke = _load_script()
+    nbytes = smoke.write_clip_checkpoint(str(tmp_path), smoke.CKPT_WORDS, "cpu")
+    scorer = CLIPScore(str(tmp_path), device="cpu")
+    assert nbytes == 2 * sum(p.numel() for m in (scorer.text, scorer.vision) for p in m.parameters()) + 8 * 77
+    img = np.random.RandomState(0).randint(0, 256, (1, 64, 64, 3)).astype(np.uint8)
+    assert 0.0 <= scorer(img, [smoke.CKPT_PROMPTS[1]]) <= 100.0
+    ids = scorer.tokenizer.encode(smoke.CKPT_PROMPTS[1])
+    assert len(ids) == len(smoke.CKPT_PROMPTS[1].split()) + 2  # every word one token
+
+
+def test_xl_p2z_nti_cut_keeps_steps_and_embeddings_aligned():
+    """SDXL's p2z edit on NTI embeddings runs every ``XL_P2Z_NTI_STRIDE``-th
+    step of the 50: that schedule's k-th timestep is the full schedule's
+    step stride * k + stride - 1 (whose NTI embedding it takes), and its
+    first latent is the inversion trajectory's entry at that timestep."""
+    import inspect
+
+    from image_editing_framework_torch.core.scheduler import inversion_timestep, make_ddim_schedule
+
+    smoke = _load_script()
+    stride, steps = smoke.XL_P2Z_NTI_STRIDE, smoke.STEPS
+    assert steps % stride == 0 and stride > 1
+    full, short = make_ddim_schedule(steps), make_ddim_schedule(steps // stride)
+    assert [int(t) for t in short.timesteps] == [int(full.timesteps[stride * k + stride - 1])
+                                                 for k in range(steps // stride)]
+    # trajectory entry j + 1 is the latent after inversion step j, at inversion_timestep(full, j)
+    j = steps + 1 - stride - 1
+    assert inversion_timestep(full, j) == int(short.timesteps[0])
+    path = inspect.getsource(smoke.phase_p2z_path)
+    assert "traj[STEPS + 1 - stride], uncond_seq[stride - 1::stride], STEPS // stride" in path
+    assert "pipe.scheduler = denoise, guided, full_schedule" in path  # the full schedule restored

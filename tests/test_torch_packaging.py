@@ -85,7 +85,7 @@ def test_api_names_are_the_modules_functions():
     assert port.load_pipeline is load_pipeline and port.CLIPTokenizer is CLIPTokenizer
     assert port.run_sweep is sweep.run_sweep
     assert set(API) <= set(dir(port))
-    for name in ("CLIPScore", "validate_pipeline"):  # not ported yet (ROADMAP A3)
+    for name in ("CLIPScore", "validate_pipeline"):  # not in the JAX package's top-level API either
         with pytest.raises(AttributeError):
             getattr(port, name)
 

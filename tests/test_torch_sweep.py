@@ -22,10 +22,10 @@ The cases mirror the serial tests of ``tests/test_sweep.py``: resume, the
 cache written by one package and read by the other in both directions,
 direct inversion from a cache (audited), the metrics and a failing metric,
 sharding and ``max_items``, the four methods, null-text inversion, and the
-tiny SDXL pipeline. What the port does not have yet raises, naming the
-ROADMAP entry: ``clip_checkpoint`` and ``lpips_weights`` (A3). The batched
-sweep (``batch_size`` > 1) is held to JAX's in
-``tests/test_torch_sweep_batched.py``."""
+tiny SDXL pipeline. The batched sweep (``batch_size`` > 1) is held to
+JAX's in ``tests/test_torch_sweep_batched.py``, the CLIP score and LPIPS
+columns (``clip_checkpoint``, ``lpips_weights``) in
+``tests/test_torch_validate.py``."""
 
 import json
 import os
@@ -300,13 +300,6 @@ def test_xl_decode_tile_default_is_restored(tmp_path, mini_pie, monkeypatch):  #
     pipe.decode_tile_latent = 32
     tsweep.run_sweep(pipe, "p2p", mini_pie, str(tmp_path / "c"), categories=(0,), max_items=1, record_metrics=False)
     assert seen == [64, 64, 32] and pipe.decode_tile_latent == 32
-
-
-@pytest.mark.parametrize("kwargs,entry", [(dict(clip_checkpoint="clip"), "A3"), (dict(lpips_weights={}), "A3")])
-def test_what_is_not_ported_raises(pipes, tmp_path, mini_pie, kwargs, entry):  # noqa: F811
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {entry}"):
-        tsweep.run_sweep(pipes[1], "p2p", mini_pie, str(tmp_path / "x"), categories=(0,), resolution=RES, **kwargs)
-    assert not os.path.exists(tmp_path / "x")
 
 
 def test_auto_p2p_config():
