@@ -100,8 +100,24 @@ Phases, one line of output each (any failure exits non-zero):
      p2p shim's ``edit_real`` at 1024² (the NTI path
      with ``XL_INNER_STEPS`` inner iterations per step and the checkpointed
      UNet; p2z with the references recomputed from pass 1's trajectory and
-     the checkpointed UNet, the XL defaults), decode full-frame and tiled;
+     the checkpointed UNet, the XL defaults, both of its edits over every
+     5th step), decode full-frame and tiled;
   10. refiner: img2img through the SDXL refiner at 1024², strength 0.3;
+  11. cp path: context parallelism (``parallel/ring_attention.py``) on
+     rank processes of their own, a group of 4 and then one of 2, over
+     gloo on one card (NCCL with a card per rank where there are enough):
+     (a) the ring, Ulysses and 2D attention at SDXL's and SD1.5's
+     4096-token sites (bf16 and f32, MasaCtrl's union at 8192 keys with its
+     segment bias, a shard of NEG_INF keys) against the unsharded forward
+     kernel and the plain version, the ring's backward at batch 1 and 2
+     against the unsharded backward kernels and the plain version with two
+     planted faults rejected, launches per rank exact, times per site;
+     (b) one SDXL 1024² CFG-4 UNet forward in f32 with the ring and with
+     Ulysses against the same forward without CP (weights equal across
+     ranks by checksum); (c) the SDXL main path under the ring (DDIM
+     inversion, P2P replace edit, decode through ``cli.invert`` /
+     ``cli.run_method``, 80 launches per UNet forward), its images equal
+     on both ranks;
 then each phase's seconds, the kernels JSON line, the card line, and the
 result line last.
 """
@@ -162,6 +178,10 @@ HEADS = 8  # of the edge cases
 # NTI inner iterations per step on the XL path (the default is 10); 1 since
 # the p2z paths joined the script, to keep it within half its time limit
 XL_INNER_STEPS = 1
+# ... and over every 5th step of the 50 (a 10-step schedule for its DDIM
+# inversion, NTI and edit) since cp_path joined: a depth cut that keeps the
+# script inside its time limit on slower hosts
+XL_NTI_STRIDE = 5
 # ... on the SD1.5 path: 2 since the serve path joined (random weights never
 # stop early, so J = 2 · 50)
 SD_INNER_STEPS = 2
@@ -2307,18 +2327,22 @@ def phase_nti_path(model, pipe):
     SD_INNER_STEPS inner iterations per step. SDXL runs its own schedule (each step from
     the original embedding, the negative pooled embeds on the unconditional
     branch, the checkpointed UNet by the auto rule at latent side 128) at
-    full width with XL_INNER_STEPS inner iterations per step: with random
-    weights the early stop never fires, and 500 iterations of a
-    2.6B-parameter forward, recomputation and backward would take minutes."""
+    full width with XL_INNER_STEPS inner iterations per step, on a schedule
+    of every XL_NTI_STRIDE-th step (the pipe's schedule swapped for the
+    run): with random weights the early stop never fires, and 500
+    iterations of a 2.6B-parameter forward, recomputation and backward
+    would take minutes."""
     from image_editing_framework_torch import cli
     from image_editing_framework_torch.core.config import NTIConfig, P2PConfig, SamplerConfig
+    from image_editing_framework_torch.core.scheduler import make_ddim_schedule
     from image_editing_framework_torch.inversion import nti
     from image_editing_framework_torch.methods.p2p import p2p_edit
 
     _, name, side, width = MODELS[model]
     image = (np.random.RandomState(1).rand(side, side, 3) * 255).astype(np.uint8)
     cfg = P2PConfig(edit_type="replace", blend_words=(("cat",), ("dog",)))
-    sampler = SamplerConfig(num_inference_steps=STEPS, height=side, width=side)
+    steps = STEPS // XL_NTI_STRIDE if model == "xl" else STEPS
+    sampler = SamplerConfig(num_inference_steps=steps, height=side, width=side)
     inner_steps = XL_INNER_STEPS if model == "xl" else SD_INNER_STEPS
 
     # the NTI call's own seconds and launch counts, read around it
@@ -2340,11 +2364,14 @@ def phase_nti_path(model, pipe):
     reset_launch_counts()
     nti.null_text_inversion.inner_iterations = 0
     cli.null_text_inversion, cli.nti_config_for = nti_read, short_config
+    full_schedule = pipe.scheduler
+    pipe.scheduler = full_schedule if steps == STEPS else make_ddim_schedule(steps)
     try:
         (last, traj, uncond_seq), invert_s = timed(lambda: cli.invert(pipe, image, PROMPTS[0], "null-text", "p2p"))
-    finally:
         cli.null_text_inversion, cli.nti_config_for = inner, config_for
-    images, edit_s = timed(lambda: p2p_edit(pipe, PROMPTS, last, cfg, sampler, uncond_seq=uncond_seq))
+        images, edit_s = timed(lambda: p2p_edit(pipe, PROMPTS, last, cfg, sampler, uncond_seq=uncond_seq))
+    finally:
+        cli.null_text_inversion, cli.nti_config_for, pipe.scheduler = inner, config_for, full_schedule
     counts = launch_counts()
     j = nti.null_text_inversion.inner_iterations
 
@@ -2355,24 +2382,24 @@ def phase_nti_path(model, pipe):
     sites, grad_sites = SITES[model], GRAD_SITES[model]
     per_iteration = 2 * sites if model == "xl" else sites
     nti_counts = tuple(a - b for a, b in zip(marks["after"], marks["before"]))
-    if not STEPS <= j <= inner_steps * STEPS:
-        raise AssertionError(f"{j} inner iterations over {STEPS} steps")
-    if nti_counts != (sites * 2 * STEPS + per_iteration * j, grad_sites * j, grad_sites * j):
+    if not steps <= j <= inner_steps * steps:
+        raise AssertionError(f"{j} inner iterations over {steps} steps")
+    if nti_counts != (sites * 2 * steps + per_iteration * j, grad_sites * j, grad_sites * j):
         raise AssertionError(f"NTI launched (forward, dQ, dK/dV) {nti_counts} times; J = {j}")
-    if counts != (sites * 4 * STEPS + per_iteration * j, grad_sites * j, grad_sites * j):
+    if counts != (sites * 4 * steps + per_iteration * j, grad_sites * j, grad_sites * j):
         raise AssertionError(f"the NTI path launched (forward, dQ, dK/dV) {counts} times; J = {j}")
-    if uncond_seq.shape != (STEPS, 77, width) or not torch.isfinite(uncond_seq).all():
+    if uncond_seq.shape != (steps, 77, width) or not torch.isfinite(uncond_seq).all():
         raise AssertionError(f"NTI embeddings {tuple(uncond_seq.shape)} not finite or misshapen")
     if images.shape != (2, side, side, 3) or images.dtype != np.uint8 or images.std() == 0:
         raise AssertionError(f"edit output {images.shape} {images.dtype} constant or misshapen")
     emit("nti_path" if model == "sd" else "xl_nti_path", model=f"{name} (random weights, seed 0)", resolution=side,
-         dtype="bfloat16", steps=STEPS, num_inner_steps=inner_steps, base_lr=marks["config"].base_lr,
+         dtype="bfloat16", steps=steps, num_inner_steps=inner_steps, base_lr=marks["config"].base_lr,
          lr_decay_span=marks["config"].lr_decay_span, checkpointed_unet=model == "xl",
          invert_s=invert_s - marks["nti_s"], nti_s=marks["nti_s"], edit_and_decode_s=edit_s,
          image_s=invert_s + edit_s, nti_share=marks["nti_s"] / (invert_s + edit_s), inner_iterations=j,
          nti_launches=nti_counts, launches=counts, uncond_moved=float((uncond_seq[-1] - uncond_seq[0]).abs().max()),
          peak_gib=torch.cuda.max_memory_allocated() / 2**30, image_mean=float(images.mean()), card=card_line())
-    return counts, (last, uncond_seq, traj)
+    return counts, (last, uncond_seq)
 
 
 def phase_profile(model, pipe, lat4, ctx, added):
@@ -2412,9 +2439,11 @@ def phase_masactrl_path(model, pipe, nti):
     ...)`` with the default (mutual) configuration; on the same inversion,
     edits alone with the union plan, a fixed asymmetric fg mask and the auto
     mask; then a mutual edit with ``phase_nti_path``'s inversion and
-    null-text embeddings. Exact forward launches per run, none backward."""
+    null-text embeddings, over their steps (SDXL's: every XL_NTI_STRIDE-th).
+    Exact forward launches per run, none backward."""
     from image_editing_framework_torch import cli
     from image_editing_framework_torch.core.config import SamplerConfig
+    from image_editing_framework_torch.core.scheduler import make_ddim_schedule
     from image_editing_framework_torch.methods.masactrl import default_masactrl_config
 
     _, name, side, _ = MODELS[model]
@@ -2432,22 +2461,26 @@ def phase_masactrl_path(model, pipe, nti):
     reset_launch_counts()
     (last, traj, _), invert_s = timed(lambda: cli.invert(pipe, image, PROMPTS[0], "ddim", "masactrl"))
     inv_counts = launch_counts()
-    runs = {}
-    for label, start, kw, per_step in (
-            ("mutual", last, {}, sites),
-            ("union", last, dict(method_kwargs={"config": dataclasses.replace(cfg, mode="union")}), sites),
-            ("mask", last, dict(method_kwargs={"mask_s": mask_s, "mask_t": mask_t}), sites + 2 * gated),
-            ("auto", last, dict(method_kwargs={"auto_mask": True}), sites + (AUTO_CALLS[model] - 1) * gated),
-            ("nti_mutual", nti[0], dict(uncond_seq=nti[1]), sites)):
+    runs, full_schedule = {}, pipe.scheduler
+    for label, start, kw, per_step, steps in (
+            ("mutual", last, {}, sites, STEPS),
+            ("union", last, dict(method_kwargs={"config": dataclasses.replace(cfg, mode="union")}), sites, STEPS),
+            ("mask", last, dict(method_kwargs={"mask_s": mask_s, "mask_t": mask_t}), sites + 2 * gated, STEPS),
+            ("auto", last, dict(method_kwargs={"auto_mask": True}), sites + (AUTO_CALLS[model] - 1) * gated, STEPS),
+            ("nti_mutual", nti[0], dict(uncond_seq=nti[1]), sites, nti[1].shape[0])):
         reset_launch_counts()
-        images, edit_s = timed(lambda: cli.run_method("masactrl", pipe, PROMPTS, start, sampler, **kw))
+        pipe.scheduler = full_schedule if steps == STEPS else make_ddim_schedule(steps)
+        try:
+            images, edit_s = timed(lambda: cli.run_method("masactrl", pipe, PROMPTS, start, sampler, **kw))
+        finally:
+            pipe.scheduler = full_schedule
         counts = launch_counts()
-        if counts != (per_step * STEPS, 0, 0):
+        if counts != (per_step * steps, 0, 0):
             raise AssertionError(f"MasaCtrl {label} on {model} launched (forward, dQ, dK/dV) {counts} times, "
-                                 f"expected ({per_step * STEPS}, 0, 0)")
+                                 f"expected ({per_step * steps}, 0, 0)")
         if any(x.shape != (side, side, 3) or x.dtype != np.uint8 or x.std() == 0 for x in images):
             raise AssertionError(f"MasaCtrl {label} output constant or misshapen")
-        runs[label] = dict(edit_and_decode_s=edit_s, flash_launches=counts[0], images=images)
+        runs[label] = dict(edit_and_decode_s=edit_s, flash_launches=counts[0], steps=steps, images=images)
     if inv_counts != (sites * STEPS, 0, 0) or not torch.isfinite(traj.float()).all():
         raise AssertionError(f"the MasaCtrl inversion launched {inv_counts} times or is not finite")
     # the masks change the target against mutual attention (the auto mask
@@ -2498,10 +2531,11 @@ def phase_pnp_path(model, pipe, inversion):
 
 # the guided step phase_p2z_path times alone
 P2Z_PROBE_STEP = 25
-# SDXL's p2z edit on the NTI path's embeddings takes every 5th step of the 50
-# (10 guided steps from the inversion's latent at that schedule's first
-# timestep, with the embeddings of its steps): a depth cut that keeps the
-# phases inside their time budget on slower hosts
+# SDXL's p2z edit on the DDIM inversion takes every 5th step of the 50 (10
+# guided steps from the inversion trajectory's latent at that schedule's
+# first timestep), and its edit on the NTI path's embeddings that path's 10
+# steps (XL_NTI_STRIDE): depth cuts that keep the script inside its time
+# limit on slower hosts
 XL_P2Z_NTI_STRIDE = 5
 
 
@@ -2512,8 +2546,9 @@ def phase_p2z_path(model, pipe, nti):
     in pass 1; SDXL: recomputed from pass 1's trajectory, the checkpointed
     UNet by the auto rule at latent side 128); then the edit alone on
     ``phase_nti_path``'s inversion and embeddings (their swap in both
-    passes; on SDXL over every ``XL_P2Z_NTI_STRIDE``-th step of the
-    schedule). Per run: seconds of pass 1, pass 2 and the decodes, exact
+    passes, over its steps: SDXL's every ``XL_NTI_STRIDE``-th). SDXL's
+    DDIM run edits over every ``XL_P2Z_NTI_STRIDE``-th step of its 50-step
+    inversion. Per run: seconds of pass 1, pass 2 and the decodes, exact
     launch counts, the loss of the first and last guided step. Then one
     guided step (step ``P2Z_PROBE_STEP`` from the inverted latent, SDXL's
     recomputed references included) timed alone and under torch.profiler,
@@ -2559,16 +2594,15 @@ def phase_p2z_path(model, pipe, nti):
     try:
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        (last, _, _), invert_s = timed(lambda: cli.invert(pipe, image, PROMPTS[0], "ddim", "p2z"))
+        (last, ddim_traj, _), invert_s = timed(lambda: cli.invert(pipe, image, PROMPTS[0], "ddim", "p2z"))
         inv_counts = launch_counts()
         # every stride-th step of the schedule: its k-th step is the full
         # schedule's step stride * k + stride - 1, whose latent the inversion
         # trajectory holds at index STEPS - (stride - 1)
         stride = XL_P2Z_NTI_STRIDE if xl else 1
-        traj, uncond_seq = nti[2], nti[1]
         for label, start, uncond, steps in (
-                ("ddim", last, None, STEPS),
-                ("nti", traj[STEPS + 1 - stride], uncond_seq[stride - 1::stride], STEPS // stride)):
+                ("ddim", last if stride == 1 else ddim_traj[STEPS + 1 - stride], None, STEPS // stride),
+                ("nti", nti[0], nti[1], nti[1].shape[0])):
             marks.clear()
             torch.cuda.reset_peak_memory_stats()
             reset_launch_counts()
@@ -2686,6 +2720,395 @@ def phase_refiner():
     return counts[0]
 
 
+# ------------------------------------------------------- context parallelism
+# The cp_path phase runs its ranks as processes of their own (``cp_rank``),
+# one gloo group of 4 and then one of 2 on the one card (NCCL refuses two
+# ranks on one device; with as many cards as ranks a group takes NCCL, one
+# card each). Every check below runs on every rank.
+
+CP_SITES = {"xl": (4, 10, 4096, 64), "sd": (4, 8, 4096, 40)}  # the 4096-token sites' (B, H, N, D), CFG batch 4
+CP_GRAD_BATCHES = (1, 2)  # the ring's backward at NTI's batch and p2z's CFG batch, SDXL's site
+CP_UNET_CONFIG = "SDXL_UNET"  # (b)'s UNet, in models/configs.py
+CP_MIN_SEQ = 4096  # the UNet's cp_min_seq: the sites at SDXL 1024²'s 64 x 64 latent level run context-parallel
+CP_BIG_SITES = 10  # SDXL 1024²'s self-attention sites at 4096 tokens (of 70)
+CP_UNET_RTOL = 1e-3  # the f32 SDXL UNet forward with CP against the same forward without CP, of max|ref|
+CP_TIME_REPS = 10  # fixed on every rank: a timed loop of collectives must run the same count everywhere
+CP_GROUP_TIMEOUT_S = 480
+CP_COLLECTIVE_TIMEOUT_S = 300
+
+
+def cp_plain(q, k, v, bias=None):
+    """The flash forward's plain version, one batch row at a time (four rank
+    processes share the card's memory)."""
+    from image_editing_framework_torch.ops import flash_attention as fa
+
+    return torch.cat([fa.flash_attention_reference(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                                   None if bias is None else bias[i:i + 1])
+                      for i in range(q.shape[0])])
+
+
+def cp_neg_inf_bias(b, nk, count, device):
+    """A (B, Nk) f32 bias whose chunk 0 (rank 0's own keys) is all NEG_INF:
+    rank 0's own block and, in the ring, every other rank's block that
+    meets it are fully masked for every row."""
+    from image_editing_framework_torch.ops.flash_attention import NEG_INF
+
+    bias = torch.zeros((b, nk), device=device)
+    bias[:, :nk // count] = NEG_INF
+    return bias
+
+
+def cp_ring_backward_variant(q, k, v, out, g, lse, group, sm_scale, home=True, global_lse=True):
+    """The ring backward on this rank's shards with a planted fault: without
+    the final rotation that sends each block's (dk, dv) home, or with each
+    block's gradient taken against this rank's own block's lse in place of
+    the global one. ``RingAttention.backward`` is the sound version."""
+    from image_editing_framework_torch.ops import flash_attention as fa
+    from image_editing_framework_torch.parallel import ring_attention as ra
+
+    if not global_lse:
+        lse = fa.flash_attention(q, k, v, None, sm_scale, return_lse=True)[1]
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, None, out, g, lse, sm_scale)
+    kb, vb = k, v
+    for _ in range(torch.distributed.get_world_size(group) - 1):
+        kb, vb, dk, dv = ra._rotate([kb, vb, dk, dv], group)
+        dq_i, dk_i, dv_i = fa.flash_attention_bwd(q, kb, vb, None, out, g, lse, sm_scale)
+        dq, dk, dv = dq + dq_i, dk + dk_i, dv + dv_i
+    if home:
+        dk, dv = ra._rotate([dk, dv], group)
+    return dq, dk, dv
+
+
+def cp_timed(fn, reps=CP_TIME_REPS):
+    """Mean host ms of fn() over ``reps`` calls after 2 warm-up calls, from
+    one synchronize to the next (the same count on every rank)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def cp_kernel_checks(mesh, mesh2d, world, device):
+    """(a): ring, Ulysses and 2D attention at the 4096-token sites against
+    the unsharded forward kernel and the plain version, through
+    ``context_parallel_attention`` (each rank's chunk, the ranks' outputs
+    all-gathered); the ring's backward against the unsharded backward
+    kernels and the plain version, and its planted faults."""
+    from image_editing_framework_torch.ops import flash_attention as fa
+    from image_editing_framework_torch.parallel import ring_attention as ra
+
+    gen = torch.Generator(device=device).manual_seed(15)  # the same inputs on every rank
+    rows = []
+
+    def check(name, mode, q, k, v, bias, expect_launches, axis="data", m=mesh):
+        reset_launch_counts()
+        out = ra.context_parallel_attention(q, k, v, bias, m, axis, mode)
+        got = launch_counts()
+        kern = fa.flash_attention(q, k, v, bias)
+        plain = cp_plain(q, k, v, bias)
+        torch.cuda.synchronize()
+        err_plain = (out.float() - plain.float()).abs().max().item()
+        err_kern = (out.float() - kern.float()).abs().max().item()
+        tol_plain, tol_kern = fa.parity_atol(plain), fa.parity_atol(kern)
+        row = dict(name=name, mode=mode, world=world, shape=list(q.shape), nk=k.shape[2], dtype=str(q.dtype)[6:],
+                   max_abs_err=err_plain, limit=tol_plain, max_abs_err_vs_kernel=err_kern, limit_vs_kernel=tol_kern,
+                   launches=got[0])
+        if got != (expect_launches, 0, 0):
+            raise AssertionError(f"cp {name}: launched (forward, dQ, dK/dV) {got}, expected ({expect_launches}, 0, 0)")
+        if not (err_plain <= tol_plain and err_kern <= tol_kern):
+            raise AssertionError(f"cp {name}: {row}")
+        rows.append(row)
+
+    for model, (b, h, n, d) in CP_SITES.items():
+        for dtype in ((torch.bfloat16, torch.float32) if model == "xl" else (torch.bfloat16,)):
+            q, k, v = (torch.randn(b, h, n, d, device=device, dtype=dtype, generator=gen) for _ in range(3))
+            check(f"{model}_ring_{str(dtype)[6:]}", "ring", q, k, v, None, world)
+            if h % world == 0:
+                check(f"{model}_ulysses_{str(dtype)[6:]}", "ulysses", q, k, v, None, 1)
+            else:  # SDXL's 10 heads on 4 ranks: every rank refuses, as the JAX package asserts
+                try:
+                    ra.context_parallel_attention(q, k, v, None, mesh, "data", "ulysses")
+                except AssertionError as e:
+                    if str(e) != "Ulysses needs heads % devices == 0":
+                        raise
+                else:
+                    raise AssertionError(f"Ulysses took {h} heads on {world} ranks")
+            if model == "xl" and mesh2d is not None:
+                check(f"xl_2d_{str(dtype)[6:]}", "ulysses_ring", q, k, v, None, 2, ("tensor", "data"), mesh2d)
+            if model == "xl" and dtype == torch.bfloat16:
+                check("xl_ring_neg_inf_shard", "ring", q, k, v, cp_neg_inf_bias(b, n, world, device), world)
+    # MasaCtrl union at Nk = 8192 (two segments) with its segment bias, as
+    # the plan path hands it over (an ungated step: the targets' source
+    # segment masked)
+    b, h, n, d = CP_SITES["xl"]
+    q, k, v, bias = bias_operands("union", b, h, n, d, gen, device=device)
+    check("xl_ring_union_8192", "ring", q, k, v, bias, world)
+
+    # the ring's backward: dq, dk, dv of sum(out * do) through the boundary
+    group = mesh.get_group("data")
+    index, count = ra._chunk(mesh, "ring", "data")[:2]
+    grads = []
+    for gb in CP_GRAD_BATCHES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (torch.randn(gb, h, n, d, device=device, dtype=dtype, generator=gen) for _ in range(4))
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out = ra.context_parallel_attention(*leaves, None, mesh, "data", "ring")
+            reset_launch_counts()
+            out.backward(do)
+            got = launch_counts()
+            if got != (0, world, world):
+                raise AssertionError(f"the ring backward launched (forward, dQ, dK/dV) {got}, expected (0, {world}, "
+                                     f"{world})")
+            o, lse = fa.flash_attention(q, k, v, None, return_lse=True)
+            kern = fa.flash_attention_bwd(q, k, v, None, o, do, lse)
+            po, plse = fa.flash_attention_reference(q, k, v, return_lse=True)
+            plain = fa.flash_attention_bwd_reference(q, k, v, None, po, do, plse)
+
+            # the planted faults, on this rank's shards
+            size = n // count
+            sl = [t.narrow(2, index * size, size).contiguous() for t in (q, k, v, do)]
+            scale = 1.0 / math.sqrt(d)
+            with torch.no_grad():
+                o_s, lse_s = ra._ring_forward(*sl[:3], None, group, scale)
+            faults = {}
+            for fault, kw in (("no_home_rotation", dict(home=False)), ("local_lse", dict(global_lse=False))):
+                parts = cp_ring_backward_variant(*sl[:3], o_s, sl[3], lse_s, group, scale, **kw)
+                faults[fault] = [ra._gather_chunks(p, [group], 2) for p in parts]
+            torch.cuda.synchronize()
+            row = dict(batch=gb, dtype=str(dtype)[6:], shape=[gb, h, n, d], launches=list(got[1:]))
+            for j, name in enumerate(("dq", "dk", "dv")):
+                got_g = leaves[j].grad.float()
+                tol = fa.grad_parity_atol(plain[j])
+                err, err_k = (got_g - plain[j].float()).abs().max().item(), (got_g - kern[j].float()).abs().max().item()
+                tol_k = fa.grad_parity_atol(kern[j])
+                row[name] = dict(max_abs_err=err, limit=tol, max_abs_err_vs_kernel=err_k, limit_vs_kernel=tol_k,
+                                 faults={f: (p[j].float() - plain[j].float()).abs().max().item()
+                                         for f, p in faults.items()})
+                if not (err <= tol and err_k <= tol_k):
+                    raise AssertionError(f"the ring's {name} disagrees: {row[name]}")
+            for fault in faults:  # each fault must move some gradient past its limit
+                if not any(row[g]["faults"][fault] > row[g]["limit"] for g in ("dq", "dk", "dv")):
+                    raise AssertionError(f"the planted fault {fault} passed the ring backward's gate: {row}")
+            grads.append(row)
+
+    # times at SDXL's site, bf16: the ring per site on every rank at once
+    # (host clock, gloo's host copies included), and its kernels alone
+    q, k, v = (torch.randn(*CP_SITES["xl"], device=device, dtype=torch.bfloat16, generator=gen) for _ in range(3))
+    ring_ms = cp_timed(lambda: ra.context_parallel_attention(q, k, v, None, mesh, "data", "ring"))
+    times = dict(ring_wall_ms_per_site=ring_ms)
+    torch.distributed.barrier(group)
+    if index == 0:  # alone on the card: the other ranks wait at the barrier
+        qs, ks, vs = (t.narrow(2, 0, n // count).contiguous() for t in (q, k, v))
+        shard_ms = cuda_ms(lambda: fa.flash_attention(qs, ks, vs, return_lse=True))
+        times.update(ring_kernel_ms_per_site=count * shard_ms, shard_kernel_ms=shard_ms,
+                     unsharded_kernel_ms=cuda_ms(lambda: fa.flash_attention(q, k, v)))
+    torch.distributed.barrier(group)
+    return dict(forward=rows, backward=grads, times=times)
+
+
+def cp_unet_forward(mesh, device):
+    """(b): one SDXL 1024² CFG-4 UNet forward, f32, seeded random weights
+    built in each rank, with the ring and with Ulysses against the same
+    forward without CP on the same rank; the ranks' weights equal by an
+    all-gathered checksum; exact launches."""
+    from image_editing_framework_torch.models import configs
+    from image_editing_framework_torch.models.unet import UNet2DCondition
+    from image_editing_framework_torch.parallel import ring_attention as ra
+    from image_editing_framework_torch.pipelines import _build
+
+    group = mesh.get_group("data")
+    world = torch.distributed.get_world_size(group)
+    cfg = getattr(configs, CP_UNET_CONFIG)
+    unet = _build(UNet2DCondition, cfg, device, torch.float32, 0)
+    checksum = torch.stack([sum(p.double().sum() for p in unet.parameters()),
+                            sum(p.double().abs().sum() for p in unet.parameters())])
+    sums = ra._all_gather(checksum, group)
+    if not all(torch.equal(s, sums[0]) for s in sums):
+        raise AssertionError(f"the ranks built other weights: checksums {sums.tolist()}")
+    gen = torch.Generator(device=device).manual_seed(16)
+    side = MODELS["xl"][2]
+    lat = torch.randn(4, side // 8, side // 8, 4, device=device, generator=gen)
+    ctx = torch.randn(4, 77, cfg.cross_attention_dim, device=device, generator=gen)
+    pooled = cfg.projection_class_embeddings_input_dim - 6 * cfg.addition_time_embed_dim
+    added = {"text_embeds": torch.randn(4, pooled, device=device, generator=gen),
+             "time_ids": torch.tensor([side, side, 0.0, 0.0, side, side], device=device).expand(4, 6)}
+    sites = unet.config.num_transformer_blocks
+    res = {}
+    with torch.no_grad():
+        ref = unet(lat, 501, ctx, None, added)[0]
+        for mode, per_site in (("ring", world), ("ulysses", 1)):
+            unet.set_context_parallel(mesh, CP_MIN_SEQ, mode)
+            reset_launch_counts()
+            (out, _), seconds = timed(lambda: unet(lat, 501, ctx, None, added))
+            got = launch_counts()
+            unet.set_context_parallel(None)
+            want = sites - CP_BIG_SITES + CP_BIG_SITES * per_site
+            err, tol = (out - ref).abs().max().item(), CP_UNET_RTOL * ref.abs().max().item()
+            res[mode] = dict(max_abs_err=err, limit=tol, max_abs_ref=ref.abs().max().item(), launches=got[0],
+                             expected_launches=want, seconds=seconds)
+            if got != (want, 0, 0) or not err <= tol:
+                raise AssertionError(f"the SDXL UNet with {mode} CP: {res[mode]}, launches {got}")
+    res["checksum"] = checksum.tolist()
+    del unet
+    torch.cuda.empty_cache()
+    return res
+
+
+def cp_main_path(mesh, device):
+    """(c): the SDXL 1024² main path under the ring, bf16, 50 steps: DDIM
+    inversion through ``cli.invert``, the P2P replace edit at CFG batch 4
+    and the decode through ``cli.run_method``; exact launches."""
+    import hashlib
+
+    from image_editing_framework_torch import cli
+    from image_editing_framework_torch.core.config import P2PConfig, SamplerConfig
+    from image_editing_framework_torch.pipelines import random_pipeline
+
+    world = torch.distributed.get_world_size(mesh.get_group("data"))
+    side = MODELS["xl"][2]
+    (pipe, setup_s) = timed(lambda: random_pipeline("xl", num_steps=STEPS, dtype=torch.bfloat16, seed=0,
+                                                    device=device))
+    pipe.unet.set_context_parallel(mesh, CP_MIN_SEQ, "ring")
+    image = (np.random.RandomState(0).rand(side, side, 3) * 255).astype(np.uint8)
+    cfg = P2PConfig(edit_type="replace", blend_words=(("cat",), ("dog",)))
+    sampler = SamplerConfig(num_inference_steps=STEPS, height=side, width=side)
+    reset_launch_counts()
+    (last, traj, _), invert_s = timed(lambda: cli.invert(pipe, image, PROMPTS[0], "ddim", "p2p"))
+    inv_counts = launch_counts()
+    images, edit_s = timed(lambda: cli.run_method("p2p", pipe, PROMPTS, last, sampler,
+                                                  method_kwargs={"config": cfg}))
+    counts = launch_counts()
+    per_forward = SITES["xl"] - CP_BIG_SITES + CP_BIG_SITES * world
+    if inv_counts != (per_forward * STEPS, 0, 0) or counts != (2 * per_forward * STEPS, 0, 0):
+        raise AssertionError(f"the main path under the ring launched (forward, dQ, dK/dV) {inv_counts} in the "
+                             f"inversion and {counts} in all, expected {per_forward} per UNet forward")
+    for img in images:
+        if img.shape != (side, side, 3) or img.dtype != np.uint8 or img.std() == 0:
+            raise AssertionError(f"the main path under the ring gave a constant or misshapen image {img.shape}")
+    if not torch.isfinite(traj.float()).all():
+        raise AssertionError("the inversion under the ring gave non-finite latents")
+    return dict(setup_s=setup_s, invert_s=invert_s, edit_and_decode_s=edit_s, image_s=invert_s + edit_s,
+                launches=counts[0], inversion_launches=inv_counts[0], launches_per_unet_forward=per_forward,
+                image_sha256=[hashlib.sha256(img.tobytes()).hexdigest() for img in images],
+                image_means=[float(img.mean()) for img in images], peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def cp_rank(rank, world, store, out_dir, parts="abc"):
+    """One rank of a cp_path group (its own process): join the group over
+    gloo on the one card, or over NCCL with a card per rank; run (a), and on
+    2 ranks also (b) and (c) (those of ``parts`` asked for); write
+    ``rank<r>.json``. Returns the exit code."""
+    import datetime
+
+    from image_editing_framework_torch.parallel import mesh as mesh_lib
+
+    rank, world = int(rank), int(world)
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh_lib.initialize_distributed(f"file://{store}", world, rank, backend=backend,
+                                    timeout=datetime.timedelta(seconds=CP_COLLECTIVE_TIMEOUT_S))
+    try:
+        mesh = mesh_lib.make_mesh(device_type="cuda")
+        mesh2d = mesh_lib.make_mesh(data=2, tensor=2, device_type="cuda") if world == 4 else None
+        t0 = time.perf_counter()
+        res = dict(rank=rank, world=world, backend=backend, kernels=cp_kernel_checks(mesh, mesh2d, world, device))
+        res["kernels_s"] = time.perf_counter() - t0
+        if world == 2 and "b" in parts:
+            t0 = time.perf_counter()
+            res["unet"] = cp_unet_forward(mesh, device)
+            res["unet_s"] = time.perf_counter() - t0
+        if world == 2 and "c" in parts:
+            res["main"] = cp_main_path(mesh, device)
+        with open(f"{out_dir}/rank{rank}.json", "w") as f:
+            json.dump(res, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def cp_group(world, root, parts="abc"):
+    """Run ``cp_rank`` on ``world`` processes; returns their results. A rank
+    that exits non-zero, or a group past ``CP_GROUP_TIMEOUT_S``, kills every
+    rank and fails with the ranks' output."""
+    import os
+
+    out_dir = tempfile.mkdtemp(prefix=f"ief_cp{world}_", dir=root)
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.cp_rank(*sys.argv[1:]))"
+    logs = [open(f"{out_dir}/rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, "-u", "-c", code, str(r), str(world), f"{out_dir}/store", out_dir,
+                               parts],
+                              cwd=here, stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.monotonic() + CP_GROUP_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        tails = "".join(f"--- rank {r}\n" + open(f"{out_dir}/rank{r}.log").read()[-4000:] for r in range(world))
+        raise AssertionError(f"cp_path's {world} ranks exited {codes} (timeout {CP_GROUP_TIMEOUT_S} s)\n{tails}")
+    results = []
+    for r in range(world):
+        with open(f"{out_dir}/rank{r}.json") as f:
+            results.append(json.load(f))
+    return results
+
+
+def phase_cp_path():
+    """Context parallelism on the card: groups of 4 and of 2 rank processes
+    (``cp_group``). Every rank checks (a) itself; here the ranks' results
+    are held to each other: the same launches, the same (b) checksum, the
+    same (c) images. Returns (the main path's forward launches per rank,
+    the ring backward's (dQ, dK/dV) launches per rank)."""
+    torch.cuda.empty_cache()  # the ranks need the card's memory that the earlier phases cached here
+    root = scratch_base(1, "cp_disk")
+    results = {world: cp_group(world, root) for world in (4, 2)}
+    lines = {}
+    for world, ranks in results.items():
+        first = ranks[0]
+        for res in ranks[1:]:
+            if [row["launches"] for row in res["kernels"]["forward"]] != [
+                    row["launches"] for row in first["kernels"]["forward"]]:
+                raise AssertionError(f"cp ranks launched unequal counts: {res['kernels']['forward']}")
+        lines[world] = first
+        emit("cp_kernels", world=world, backend=first["backend"], forward=first["kernels"]["forward"],
+             backward=first["kernels"]["backward"], times=first["kernels"]["times"],
+             times_by_rank=[res["kernels"]["times"] for res in ranks], seconds=first["kernels_s"], card=card_line())
+    two = results[2]
+    if two[0]["unet"]["checksum"] != two[1]["unet"]["checksum"]:
+        raise AssertionError("the two ranks' UNet checksums differ")
+    hashes = [res["main"]["image_sha256"] for res in two]
+    if hashes[0] != hashes[1]:
+        raise AssertionError(f"the main path under the ring gave other images on the two ranks: {hashes}")
+    emit("cp_unet", model="SDXL base UNet (random weights, seed 0)", resolution=1024, dtype="float32", batch=4,
+         world=2, backend=two[0]["backend"], **{k: v for k, v in two[0]["unet"].items()},
+         rank1={k: two[1]["unet"][k] for k in ("ring", "ulysses")}, seconds=two[0]["unet_s"], card=card_line())
+    main = two[0]["main"]
+    emit("cp_main_path", model="SDXL base (random weights, seed 0)", resolution=1024, dtype="bfloat16", steps=STEPS,
+         world=2, backend=two[0]["backend"], mode="ring", **main, rank1_image_s=two[1]["main"]["image_s"],
+         images_equal_across_ranks=True, xl_main_path_image_s=EMITTED.get("xl_main_path", {}).get("image_s"),
+         note="one card: both ranks share it and gloo copies every rotation through host memory; these seconds "
+              "say nothing about scaling over several cards", card=card_line())
+    bwd = sum(row["launches"][0] for row in results[2][0]["kernels"]["backward"])
+    return main["launches"], (bwd, bwd)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2729,6 +3152,7 @@ def main() -> int:
         del profile_args, nti, inversion  # the next model needs the card's memory
         torch.cuda.empty_cache()
     launches["refiner"] = run("refiner", phase_refiner)
+    launches["cp"], cp_bwd = run("cp_path", phase_cp_path)
     emit("seconds", **seconds)
     for model in MODELS:
         fwd, bwd = sums[model], bwd_sums[model]["all"]
@@ -2761,12 +3185,15 @@ def main() -> int:
         "replaces": f"{tpu}:{line}", "also_replaces": f"{tpu}:{line_t}",
         "launches": sum(counts[i] for counts in bwd_launches.values())
         + sum(counts[i + 1] for runs in p2z_runs.values() for counts in runs.values())
-        + sum(counts[i + 1] for counts in validation),
+        + sum(counts[i + 1] for counts in validation) + cp_bwd[i],
         "launches_by_path": {"nti_path": bwd_launches["sd"][i], "xl_nti_path": bwd_launches["xl"][i],
                              "masactrl_path": 0, "xl_masactrl_path": 0, "pnp_path": 0, "xl_pnp_path": 0,
                              "p2z_path": sum(counts[i + 1] for counts in p2z_runs["sd"].values()),
                              "xl_p2z_path": sum(counts[i + 1] for counts in p2z_runs["xl"].values()),
-                             "validation_path": validation[0][i + 1], "validation_rerun": validation[1][i + 1]},
+                             "validation_path": validation[0][i + 1], "validation_rerun": validation[1][i + 1],
+                             "cp_path": cp_bwd[i]},
+        "cp_path_launches": "rank 0's: the ring's backward at SDXL's 4096-token site, batch 1 and 2, bf16 and f32, "
+                            "on 2 ranks (2 of each kernel per call)",
         "max_abs_err": bwd_worst[torch.bfloat16][kernel], "max_abs_err_f32": bwd_worst[torch.float32][kernel],
         **at(bwd_sums["sd"][kernel], *device), "work": work["sd"],
         "at_xl": dict(at(bwd_sums["xl"][kernel], *device), work=work["xl"]),
@@ -2805,7 +3232,8 @@ def main() -> int:
                              "masactrl_path": launches["masactrl"], "xl_masactrl_path": launches["xl_masactrl"],
                              "pnp_path": launches["pnp"], "xl_pnp_path": launches["xl_pnp"],
                              "p2z_path": launches["p2z"], "xl_p2z_path": launches["xl_p2z"],
-                             "refiner": launches["refiner"]},
+                             "refiner": launches["refiner"], "cp_path": launches["cp"]},
+        "cp_path_launches": "rank 0's: the SDXL 1024² main path under the ring on 2 ranks (80 per UNet forward)",
         "p2z_launches_by_run": p2z_runs,
         "sweep_launches_by_run": sweep_runs,
         "masactrl_launches_by_run": masa_runs,

@@ -14,8 +14,11 @@ its PIE-Bench sweep (``test`` / ``cli.test_main``: ``data/pie.py``, the
 inversion cache, ``eval/metrics.py`` MSE / PSNR / SSIM, ``eval/sweep.py``,
 one image at a time or in batched groups), the batched editors
 (``eval/batched.py``, batched null-text inversion), the editing service
-(``serve.py``), and the quality metrics with the validation runway (the
-CLIP vision tower, ``CLIPScore``, LPIPS, ``eval/validate.py``).
+(``serve.py``), the quality metrics with the validation runway (the
+CLIP vision tower, ``CLIPScore``, LPIPS, ``eval/validate.py``), and
+context parallelism over ``torch.distributed`` (``parallel/``: ring,
+Ulysses and 2D attention, the UNet's ``cp_mesh``) with the distributed
+sweep launcher (``tools/launch_distributed_sweep.py``).
 
 Importing the package imports nothing heavy: the top-level API below is
 resolved on first access, as the JAX package's is.

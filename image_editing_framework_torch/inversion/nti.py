@@ -51,6 +51,7 @@ from image_editing_framework_torch.core.config import NTIConfig
 from image_editing_framework_torch.core.scheduler import DDIMSchedule, ddim_step
 from image_editing_framework_torch.methods.base import _group_of_one, flat, flat_added
 from image_editing_framework_torch.methods.common import grad_unet
+from image_editing_framework_torch.parallel.ring_attention import lockstep
 
 Added = Optional[Dict[str, torch.Tensor]]
 
@@ -112,6 +113,7 @@ def _nti_loop_group(
     reset_each_step: bool,
     added_conds: Added = None,  # dict of (G, 1, ...)
     added_unconds: Added = None,
+    cp_mesh=None,
 ) -> Tuple[torch.Tensor, list]:
     """The per-step optimisation of a group of G images in one batch (JAX
     ``_nti_scan`` under ``vmap``); returns the (G, S, 77, D) f32 embeddings
@@ -122,7 +124,9 @@ def _nti_loop_group(
     image that has stopped stays in the batch with its embedding and Adam
     state frozen, as JAX's batched ``while_loop`` freezes a finished lane; the
     loop ends when every image has stopped. The host reads the (G,) loss
-    vector once per iteration."""
+    vector once per iteration. Under context parallelism (``cp_mesh``, the
+    UNet's) every rank takes the mesh's first rank's loss vector
+    (``lockstep``), so all ranks stop at the same iteration."""
     s = sched.num_steps
     g = trajectories.shape[0]
     if added_unconds is None:
@@ -163,6 +167,7 @@ def _nti_loop_group(
         # before it was small enough (JAX while_loop cond/body, nti.py:95-107).
         while j < cfg.num_inner_steps and any(host_active):
             loss_t, grad = loss_and_grad(u)
+            loss_t = lockstep(loss_t, cp_mesh)
             m_next = 0.9 * m + 0.1 * grad
             v_next = 0.999 * v + 0.001 * torch.square(grad)
             mh = m_next / float(_F32(1.0) - _F32(0.9) ** _F32(j + 1))
@@ -199,11 +204,13 @@ def _nti_loop(
     reset_each_step: bool,
     added_cond: Added = None,
     added_uncond: Added = None,
+    cp_mesh=None,
 ) -> torch.Tensor:
     """The per-step optimisation of one image (JAX ``_nti_scan``; a group of
     1); returns (S, 77, D) f32."""
     return _nti_loop_group(unet, sched, trajectory[None], cond_emb[None], uncond0[None], guidance_scale, cfg,
-                           reset_each_step, _group_of_one(added_cond), _group_of_one(added_uncond))[0][0]
+                           reset_each_step, _group_of_one(added_cond), _group_of_one(added_uncond),
+                           cp_mesh)[0][0]
 
 
 def _split_added(added_cond: Added) -> Tuple[Added, Added]:
@@ -238,7 +245,8 @@ def null_text_inversion_batch(
     unet = grad_unet(pipe, trajectories.shape[-3], cfg.remat)
     seqs, stops = _nti_loop_group(unet, pipe.scheduler, trajectories, contexts[:, 1:], contexts[:, :1],
                                   guidance_scale, cfg, reset_each_step=pipe.model_type == "xl",
-                                  added_conds=added_conds, added_unconds=added_unconds)
+                                  added_conds=added_conds, added_unconds=added_unconds,
+                                  cp_mesh=pipe.unet.cp_mesh)
     return (seqs, stops) if return_stops else seqs
 
 
@@ -256,7 +264,8 @@ def null_text_inversion(
     added_cond, added_uncond = _split_added(added_cond)
     unet = grad_unet(pipe, trajectory.shape[-3], cfg.remat)
     return _nti_loop(unet, pipe.scheduler, trajectory, context[1:], context[:1], guidance_scale, cfg,
-                     reset_each_step=pipe.model_type == "xl", added_cond=added_cond, added_uncond=added_uncond)
+                     reset_each_step=pipe.model_type == "xl", added_cond=added_cond, added_uncond=added_uncond,
+                     cp_mesh=pipe.unet.cp_mesh)
 
 
 # Inner Adam iterations run since the count was last set to 0 (of a group,

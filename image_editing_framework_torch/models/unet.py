@@ -114,6 +114,8 @@ class Attention(nn.Module):
     def __init__(self, query_dim: int, heads: int, cross_dim: Optional[int], layer: int, place: str):
         super().__init__()
         self.heads, self.cross_dim, self.layer, self.place = heads, cross_dim, layer, place
+        # context parallelism, set by UNet2DCondition.set_context_parallel
+        self.cp_mesh, self.cp_min_seq, self.cp_mode = None, 4096, "ring"
         src_dim = cross_dim if cross_dim is not None else query_dim
         self.to_q = nn.Linear(query_dim, query_dim, bias=False)
         self.to_k = nn.Linear(src_dim, query_dim, bias=False)
@@ -133,9 +135,13 @@ class Attention(nn.Module):
                 records[rkey] = ctrl.record(site, probs)
             out = apply_probs(probs, v)
         else:
-            out = ctrl.self_override(site, q, k, v, running)
+            # A self-attention site of at least cp_min_seq tokens runs
+            # context-parallel, the masked overrides' calls too. Cross-
+            # attention never does: its probabilities are P2P's.
+            cp = dict(cp_mesh=self.cp_mesh if x.shape[1] >= self.cp_min_seq else None, cp_mode=self.cp_mode)
+            out = ctrl.self_override(site, q, k, v, running, **cp)
             if out is None:
-                out = self_attention(q, k, v, ctrl.self_plan(site, x.shape[0], x.device))
+                out = self_attention(q, k, v, ctrl.self_plan(site, x.shape[0], x.device), **cp)
         out = merge_heads(out).to(x.dtype)
         return self.to_out[0](out), records
 
@@ -284,7 +290,17 @@ class _Block(nn.Module):
 
 
 class UNet2DCondition(nn.Module):
-    def __init__(self, config: UNetConfig):
+    """``cp_mesh`` (a ``DeviceMesh``): context parallelism, as the JAX
+    ``UNet2DCondition``'s: every self-attention site of at least
+    ``cp_min_seq`` tokens splits its sequence over the mesh's 'data' axis,
+    ``cp_mode`` 'ring' (K/V rotation), 'ulysses' (all-to-all head <->
+    sequence) or 'ulysses_ring' (2D, over 'tensor' x 'data'). The
+    activations stay replicated on every rank: at a CP site each rank takes
+    its chunk of q, k, v and the bias, and the output is all-gathered
+    (``parallel/ring_attention.py context_parallel_attention``). Every rank
+    runs the same forward with the same weights."""
+
+    def __init__(self, config: UNetConfig, cp_mesh=None, cp_min_seq: int = 4096, cp_mode: str = "ring"):
         super().__init__()
         cfg = self.config = config
         block0 = cfg.block_out_channels[0]
@@ -340,6 +356,16 @@ class UNet2DCondition(nn.Module):
 
         self.conv_norm_out = nn.GroupNorm(32, block0, eps=1e-5)
         self.conv_out = nn.Conv2d(block0, cfg.out_channels, 3, padding=1)
+        self.set_context_parallel(cp_mesh, cp_min_seq, cp_mode)
+
+    def set_context_parallel(self, cp_mesh=None, cp_min_seq: int = 4096, cp_mode: str = "ring"):
+        """Switch context parallelism on (a mesh) or off (None) for every
+        attention layer; a loaded pipeline's UNet takes it this way."""
+        self.cp_mesh, self.cp_min_seq, self.cp_mode = cp_mesh, cp_min_seq, cp_mode
+        for module in self.modules():
+            if isinstance(module, Attention):
+                module.cp_mesh, module.cp_min_seq, module.cp_mode = cp_mesh, cp_min_seq, cp_mode
+        return self
 
     def forward(self, sample: torch.Tensor, timestep, context: torch.Tensor, ctrl=None,
                 added_cond: Optional[Dict[str, torch.Tensor]] = None, remat: bool = False):

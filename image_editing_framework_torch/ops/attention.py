@@ -11,6 +11,10 @@ Counterpart of ``image_editing_framework_tpu/ops/attention.py``:
 
 * **Cross-attention** (K = 77 text tokens) materialises f32 probabilities
   explicitly, because P2P edits them. It is plain tensor code, not a kernel.
+
+* **Context parallelism** (``cp_mesh``): self-attention with its sequence
+  split over the ranks of a mesh axis (``parallel/ring_attention.py``), the
+  plan's gathers and biases first, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Optional
 import torch
 
 from image_editing_framework_torch.ops.flash_attention import NEG_INF, flash_attention
+from image_editing_framework_torch.parallel.ring_attention import context_parallel_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,21 +113,45 @@ def self_attention(
     v: torch.Tensor,
     plan: Optional[SelfAttnPlan],
     bias: Optional[torch.Tensor] = None,
+    cp_mesh=None,
+    cp_axis="data",
+    cp_mode: str = "ring",
 ) -> torch.Tensor:
     """Fused self-attention with optional batch-index remapping.
 
     q/k/v: (B, H, N, D). plan=None means no edit (skips the gathers).
     ``bias`` is an explicit per-key additive logit bias (B, Nk), added to any
     plan-segment bias (it addresses the post-gather key layout).
+
+    ``cp_mesh`` (a ``DeviceMesh``) switches to context-parallel attention
+    with the sequence split over ``cp_axis``: ``cp_mode`` 'ring' (K/V
+    rotation), 'ulysses' (all-to-all head <-> sequence) or 'ulysses_ring'
+    (both; ``cp_axis`` a (head_axis, seq_axis) pair, ("tensor", "data")
+    unless given). q, k, v stay replicated here: the plan's gathers run
+    first, then each rank takes its chunk of the gathered q, k, v and bias
+    (``parallel/ring_attention.py context_parallel_attention``), and the
+    output is all-gathered.
     """
-    return flash_attention(*plan_operands(q, k, v, plan, bias))
+    q, k, v, bias = plan_operands(q, k, v, plan, bias)
+    if cp_mesh is None:
+        return flash_attention(q, k, v, bias)
+    return context_parallel_attention(q, k, v, bias, cp_mesh, cp_axis, cp_mode)
 
 
-def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def masked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,
+    cp_mesh=None,
+    cp_axis="data",
+    cp_mode: str = "ring",
+) -> torch.Tensor:
     """Attention with a per-key additive logit bias (B, Nk), contiguous f32
     — the masked MasaCtrl primitives (masactrl/model/attention_control.py:
-    142-151). Context parallelism (the JAX ``cp_mesh``) is not ported yet."""
-    return self_attention(q, k, v, None, bias=bias)
+    142-151). ``cp_mesh`` runs it context-parallel (the bias is split, and
+    rotates or is gathered, with K)."""
+    return self_attention(q, k, v, None, bias=bias, cp_mesh=cp_mesh, cp_axis=cp_axis, cp_mode=cp_mode)
 
 
 def cross_attention_probs(q: torch.Tensor, k: torch.Tensor, sm_scale: Optional[float] = None) -> torch.Tensor:

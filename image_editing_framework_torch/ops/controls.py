@@ -55,10 +55,14 @@ class NoneStep:
     def self_plan(self, site: AttnSite, batch: int, device=None) -> Optional[SelfAttnPlan]:
         return None
 
-    def self_override(self, site: AttnSite, q, k, v, running=None):
+    def self_override(self, site: AttnSite, q, k, v, running=None, cp_mesh=None, cp_mode="ring"):
         """Full custom self-attention output (the masked MasaCtrl variants);
         None means use the plan/flash path. ``running`` is the dict of
-        records from earlier sites of the same UNet forward."""
+        records from earlier sites of the same UNet forward.
+        ``cp_mesh`` / ``cp_mode`` thread the UNet's context parallelism into
+        the override's attention calls (the per-key fg/bg bias is split with
+        K), so masked variants at long-sequence sites run context-parallel
+        like every plan-path site."""
         return None
 
     def bind_store(self, store, step_index):
@@ -313,13 +317,14 @@ class MasaCtrlStep(NoneStep):
         return k[half_src], v[half_src], ((iota % self.num_prompts) != 0)[:, None, None, None]
 
 
-def _fg_bg_blend(q, k_src, v_src, fg_s: torch.Tensor, mt: torch.Tensor) -> torch.Tensor:
+def _fg_bg_blend(q, k_src, v_src, fg_s: torch.Tensor, mt: torch.Tensor, cp: dict) -> torch.Tensor:
     """All queries against the source's fg keys (``fg_s``, (N,) bool) and
     against its bg keys, blended by the target mask ``mt`` (N,):
-    ``out_fg * mt + out_bg * (1 - mt)``."""
+    ``out_fg * mt + out_bg * (1 - mt)``. ``cp``: the UNet's context
+    parallelism (``cp_mesh``, ``cp_mode``)."""
     b = q.shape[0]
-    out_fg = masked_attention(q, k_src, v_src, key_bias(fg_s, b))
-    out_bg = masked_attention(q, k_src, v_src, key_bias(~fg_s, b))
+    out_fg = masked_attention(q, k_src, v_src, key_bias(fg_s, b), **cp)
+    out_bg = masked_attention(q, k_src, v_src, key_bias(~fg_s, b), **cp)
     mt = mt[None, None, :, None]
     return out_fg * mt + out_bg * (1.0 - mt)
 
@@ -340,14 +345,15 @@ class MasaCtrlMaskStep(MasaCtrlStep):
     mask_s: Optional[torch.Tensor] = None  # (h, w) source object mask
     mask_t: Optional[torch.Tensor] = None  # (h, w) target object mask
 
-    def self_override(self, site: AttnSite, q, k, v, running=None):
+    def self_override(self, site: AttnSite, q, k, v, running=None, cp_mesh=None, cp_mode="ring"):
         if site.layer not in self.layers:
             return None
+        cp = dict(cp_mesh=cp_mesh, cp_mode=cp_mode)
         side = int(q.shape[2] ** 0.5)
         k_src, v_src, is_target = self._source_kv(k, v)
-        normal = self_attention(q, k, v, None)
+        normal = self_attention(q, k, v, None, **cp)
         blended = _fg_bg_blend(q, k_src, v_src, _resize_nearest(self.mask_s, side) > 0.5,
-                               _resize_nearest(self.mask_t, side))
+                               _resize_nearest(self.mask_t, side), cp)
         return torch.where(is_target & self.step_gate, blended, normal)
 
 
@@ -395,12 +401,13 @@ class MasaCtrlAutoStep(MasaCtrlStep):
     def self_plan(self, site: AttnSite, batch: int, device=None) -> Optional[SelfAttnPlan]:
         return None  # all logic lives in self_override
 
-    def self_override(self, site: AttnSite, q, k, v, running=None):
+    def self_override(self, site: AttnSite, q, k, v, running=None, cp_mesh=None, cp_mode="ring"):
         if site.layer not in self.layers:
             return None
+        cp = dict(cp_mesh=cp_mesh, cp_mode=cp_mode)
         k_src, v_src, is_target = self._source_kv(k, v)
-        normal = self_attention(q, k, v, None)
-        mutual = self_attention(q, k_src, v_src, None)
+        normal = self_attention(q, k, v, None, **cp)
+        mutual = self_attention(q, k_src, v_src, None, **cp)
         if not running:
             # no cross maps recorded yet this forward: plain mutual attention
             # for targets (attention_control.py:293-296)
@@ -408,7 +415,7 @@ class MasaCtrlAutoStep(MasaCtrlStep):
 
         side = int(q.shape[2] ** 0.5)
         ms, mt = (_resize_nearest(m.reshape(16, 16), side) >= self.thres for m in self.masks_from(running))
-        masked = _fg_bg_blend(q, k_src, v_src, ms, mt.to(torch.float32))
+        masked = _fg_bg_blend(q, k_src, v_src, ms, mt.to(torch.float32), cp)
         return torch.where(is_target & self.step_gate, masked, normal)
 
 

@@ -65,14 +65,14 @@ def row_dependence(pipe, batch: int, side: int = 64, t: int = 981) -> dict:
     found = {"row_dependent": collections.defaultdict(set), "batch_dependent": collections.defaultdict(set)}
     busy = [False]
 
-    def rerun(name, fn, args):
+    def rerun(name, fn, args, kwargs):
         if busy[0]:
             return
         busy[0] = True
         try:
             rows = [isinstance(a, torch.Tensor) and a.dim() and a.shape[0] == batch for a in args]
-            out = fn(*[a[:1].expand_as(a).contiguous() if r else a for a, r in zip(args, rows)])
-            alone = fn(*[a[:1].contiguous() if r else a for a, r in zip(args, rows)])
+            out = fn(*[a[:1].expand_as(a).contiguous() if r else a for a, r in zip(args, rows)], **kwargs)
+            alone = fn(*[a[:1].contiguous() if r else a for a, r in zip(args, rows)], **kwargs)
         finally:
             busy[0] = False
         calls[name] += 1
@@ -84,12 +84,12 @@ def row_dependence(pipe, batch: int, side: int = 64, t: int = 981) -> dict:
 
     def hook(mod, args, _out):
         if isinstance(args[0], torch.Tensor) and args[0].shape[0] == batch:
-            rerun(type(mod).__name__, mod, args)
+            rerun(type(mod).__name__, mod, args, {})
 
     def wrapped(name, fn):
-        def call(*args):
-            out = fn(*args)
-            rerun(name, fn, args)
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            rerun(name, fn, args, kwargs)
             return out
         return call
 

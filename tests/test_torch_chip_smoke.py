@@ -544,10 +544,13 @@ def test_clip_checkpoint_writer_gives_clip_scores_shapes(tmp_path, monkeypatch):
 
 
 def test_xl_p2z_nti_cut_keeps_steps_and_embeddings_aligned():
-    """SDXL's p2z edit on NTI embeddings runs every ``XL_P2Z_NTI_STRIDE``-th
-    step of the 50: that schedule's k-th timestep is the full schedule's
-    step stride * k + stride - 1 (whose NTI embedding it takes), and its
-    first latent is the inversion trajectory's entry at that timestep."""
+    """SDXL's p2z edit on the DDIM inversion runs every
+    ``XL_P2Z_NTI_STRIDE``-th step of the 50: that schedule's k-th timestep
+    is the full schedule's step stride * k + stride - 1, and its first
+    latent is the 50-step inversion trajectory's entry at that timestep.
+    Its edit on NTI embeddings takes the NTI path's own steps (SDXL's NTI
+    path runs every ``XL_NTI_STRIDE``-th step), its last latent and all its
+    embeddings, as the MasaCtrl edit on them does."""
     import inspect
 
     from image_editing_framework_torch.core.scheduler import inversion_timestep, make_ddim_schedule
@@ -562,5 +565,66 @@ def test_xl_p2z_nti_cut_keeps_steps_and_embeddings_aligned():
     j = steps + 1 - stride - 1
     assert inversion_timestep(full, j) == int(short.timesteps[0])
     path = inspect.getsource(smoke.phase_p2z_path)
-    assert "traj[STEPS + 1 - stride], uncond_seq[stride - 1::stride], STEPS // stride" in path
+    assert "ddim_traj[STEPS + 1 - stride], None, STEPS // stride" in path
+    assert '("nti", nti[0], nti[1], nti[1].shape[0])' in path
     assert "pipe.scheduler = denoise, guided, full_schedule" in path  # the full schedule restored
+    assert steps % smoke.XL_NTI_STRIDE == 0 and smoke.XL_NTI_STRIDE > 1
+    nti = inspect.getsource(smoke.phase_nti_path)
+    assert "steps = STEPS // XL_NTI_STRIDE if model == \"xl\" else STEPS" in nti
+    assert "sites * 4 * steps + per_iteration * j" in nti and "pipe.scheduler = inner, config_for, full_schedule" in nti
+    masa = inspect.getsource(smoke.phase_masactrl_path)
+    assert '("nti_mutual", nti[0], dict(uncond_seq=nti[1]), sites, nti[1].shape[0])' in masa
+
+
+def test_chip_smoke_wires_the_cp_path():
+    """cp_path runs after the refiner, its launches join the kernels line
+    (the main path under the ring for the forward, the ring's backward for
+    both backward kernels), its shapes are SDXL's and SD1.5's 4096-token
+    sites, and SDXL's UNet under the ring on n ranks launches 60 + 10 n
+    kernels a forward; SDXL's p2z DDIM run takes the NTI run's stride."""
+    import inspect
+
+    smoke = _load_script()
+    source = inspect.getsource(smoke.main)
+    assert source.index("phase_refiner") < source.index("phase_cp_path") < source.index('emit("seconds"')
+    assert '"cp_path": launches["cp"]' in source and '"cp_path": cp_bwd[i]' in source
+    assert smoke.CP_SITES == {"xl": (4, 10, 4096, 64), "sd": (4, 8, 4096, 40)}
+    n, d, h, sites = smoke.PATH_SHAPES["xl"][0]
+    assert (n, d, h, sites) == (smoke.CP_MIN_SEQ, 64, 10, smoke.CP_BIG_SITES)
+    assert [smoke.SITES["xl"] - smoke.CP_BIG_SITES + smoke.CP_BIG_SITES * n for n in (2, 4)] == [80, 100]
+    assert smoke.CP_UNET_CONFIG == "SDXL_UNET" and smoke.CP_GRAD_BATCHES == (1, 2)
+    checks = inspect.getsource(smoke.cp_kernel_checks)
+    for fault in ("no_home_rotation", "local_lse"):
+        assert fault in checks
+    assert "per_forward * STEPS" in inspect.getsource(smoke.cp_main_path)
+    path = inspect.getsource(smoke.phase_p2z_path)
+    assert '"ddim", last if stride == 1 else ddim_traj[STEPS + 1 - stride], None, STEPS // stride' in path
+
+
+@pytest.mark.parametrize("home,global_lse", [(True, True), (False, True), (True, False)])
+def test_ring_backward_variants_on_one_rank(tmp_path, home, global_lse):
+    """On a group of one rank the ring is the flash function itself: the
+    sound variant of chip_smoke's ring backward gives its gradients, the
+    planted faults change nothing there (they need a second rank to bite,
+    which cp_path and tests/test_torch_ring_attention.py have)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from image_editing_framework_torch.ops import flash_attention as fa
+    from image_editing_framework_torch.parallel import ring_attention as ra
+
+    smoke = _load_script()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        group = dist.group.WORLD
+        gen = torch.Generator().manual_seed(0)
+        q, k, v, do = (torch.randn(1, 2, 32, 16, generator=gen) for _ in range(4))
+        o, lse = ra._ring_forward(q, k, v, None, group, 0.25)
+        ref = fa.flash_attention_bwd_reference(q, k, v, None, o, do, lse, 0.25)
+        got = smoke.cp_ring_backward_variant(q, k, v, o, do, lse, group, 0.25, home=home, global_lse=global_lse)
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+    finally:
+        dist.destroy_process_group()

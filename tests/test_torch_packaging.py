@@ -34,7 +34,7 @@ def test_find_packages_sees_the_port():
     include = _pyproject()["tool"]["setuptools"]["packages"]["find"]["include"]
     found = set(setuptools.find_packages(where=ROOT, include=include))
     subpackages = {f"image_editing_framework_torch.{name}" for name in
-                   ("core", "data", "eval", "inversion", "methods", "models", "ops", "tools", "utils")}
+                   ("core", "data", "eval", "inversion", "methods", "models", "ops", "parallel", "tools", "utils")}
     assert {"image_editing_framework_torch"} | subpackages <= found
     assert "image_editing_framework_tpu" in found  # the JAX package still installs
 

@@ -1,0 +1,273 @@
+"""Rank processes for the port's context-parallel CPU tests.
+
+Each test file starts its ranks once (``launch``): one process per rank, a
+gloo group on a ``file://`` store under the test's temporary directory, a
+60 s collective timeout, and a join timeout after which every rank is
+killed. The ranks run every case of their suite on inputs made from a seed
+with numpy (``ring_inputs``, which the tests call too) and write this
+rank's results to ``<out>/<suite>_<rank>.npz``. This module imports neither
+JAX nor a test module, so a rank process imports no JAX.
+
+    python tests/torch_cp_workers.py SUITE RANK WORLD STORE OUT [IN]
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import subprocess
+import sys
+import traceback
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NEG_INF = -0.7 * float(np.finfo(np.float32).max)
+JOIN_TIMEOUT_S = 240
+
+# name -> (seed, B, H, Nq, Nk, D, bias kind, mode, worlds, grad)
+RING_CASES = {
+    "ring": (0, 2, 4, 128, 128, 16, None, "ring", (2, 4), False),
+    "ring_segment_bias": (1, 2, 4, 128, 128, 16, "segment", "ring", (2, 4), False),
+    "ring_union_bias": (2, 2, 2, 64, 128, 16, "union", "ring", (2, 4), False),
+    "ring_neg_inf_shards": (3, 1, 2, 128, 128, 16, "neg_inf_half", "ring", (4,), False),
+    "ulysses_bias": (4, 1, 4, 128, 128, 16, "segment", "ulysses", (2, 4), False),
+    "ulysses_ring": (5, 1, 4, 128, 128, 16, None, "ulysses_ring", (4,), False),
+    "ulysses_ring_bias": (6, 1, 4, 128, 128, 16, "segment", "ulysses_ring", (4,), False),
+    "ring_grad": (7, 1, 2, 128, 128, 16, "segment", "ring", (2, 4), True),
+    "ulysses_grad": (8, 1, 4, 128, 128, 16, "segment", "ulysses", (2,), True),
+    "ulysses_ring_grad": (9, 1, 4, 128, 128, 16, None, "ulysses_ring", (4,), True),
+}
+
+
+def ring_inputs(name):
+    """Global numpy inputs of a case: q, k, v, bias (or None), the loss's
+    target (of q's shape)."""
+    seed, b, h, nq, nk, d, kind, *_ = RING_CASES[name]
+    rng = np.random.RandomState(seed)
+    q = rng.standard_normal((b, h, nq, d)).astype(np.float32)
+    k = rng.standard_normal((b, h, nk, d)).astype(np.float32)
+    v = rng.standard_normal((b, h, nk, d)).astype(np.float32)
+    tgt = rng.standard_normal((b, h, nq, d)).astype(np.float32)
+    keys = np.arange(nk)
+    if kind is None:
+        bias = None
+    elif kind == "segment":  # MasaCtrl-union-like segments: a quarter of each 64 keys off
+        bias = np.where(keys % 64 < 48, 0.0, NEG_INF)
+    elif kind == "union":  # two segments of nq keys, the first off for batch row 0
+        bias = np.stack([np.where(keys < nq, NEG_INF, 0.0), np.zeros(nk)])
+    else:  # the first half of the keys truly -inf: two ring shards whose rows see no live key
+        bias = np.where(keys < nk // 2, -np.inf, 0.0)
+    if bias is not None:
+        bias = np.broadcast_to(bias, (b, nk)).astype(np.float32).copy()
+    return q, k, v, bias, tgt
+
+
+def launch(suite, world, tmp, in_dir="", timeout=JOIN_TIMEOUT_S):
+    """Run ``suite`` on ``world`` rank processes; returns each rank's results
+    (a list of dicts). Raises with the ranks' output if one fails or the
+    join times out (every rank is killed first)."""
+    out = os.path.join(str(tmp), f"{suite}_{world}")
+    os.makedirs(out, exist_ok=True)
+    store = os.path.join(out, "store")
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    procs = []
+    for rank in range(world):
+        log = open(os.path.join(out, f"rank{rank}.log"), "w")
+        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), suite, str(rank), str(world), store,
+                                        out, str(in_dir)], cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT),
+                      log))
+    try:
+        for proc, _ in procs:
+            proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    codes = [proc.returncode for proc, _ in procs]
+    if any(codes):
+        logs = "".join(open(os.path.join(out, f"rank{r}.log")).read()[-3000:] for r in range(world))
+        raise AssertionError(f"{suite} on {world} ranks: exit codes {codes}\n{logs}")
+    return [dict(np.load(os.path.join(out, f"{suite}_{rank}.npz"))) for rank in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# rank side
+
+
+def _torch_inputs(name):
+    import torch
+
+    return [None if x is None else torch.from_numpy(x) for x in ring_inputs(name)]
+
+
+def _chunk(mesh, mode):
+    from image_editing_framework_torch.parallel.ring_attention import _chunk
+
+    index, count, _, _ = _chunk(mesh, mode, "data")
+    return index, count
+
+
+def suite_ring(mesh1d, mesh2d, world):
+    """Every ring case for this world: this rank's output shard (and for the
+    grad cases its dq, dk, dv shards), the chunk it holds."""
+    import torch
+
+    from image_editing_framework_torch.parallel import ring_attention as ra
+
+    res = {}
+    for name, (_, _, h, _, _, _, _, mode, worlds, grad) in RING_CASES.items():
+        if world not in worlds:
+            continue
+        mesh = mesh2d if mode == "ulysses_ring" else mesh1d
+        index, count = _chunk(mesh, mode)
+        q, k, v, bias, tgt = _torch_inputs(name)
+
+        def shard(x, dim=2):
+            size = x.shape[dim] // count
+            return x.narrow(dim, index * size, size).contiguous()
+
+        qs, ks, vs = (shard(x).requires_grad_(grad) for x in (q, k, v))
+        bs = None if bias is None else shard(bias, 1)
+        if mode == "ring":
+            out = ra.ring_self_attention(qs, ks, vs, mesh, "data", bias=bs)
+        elif mode == "ulysses":
+            out = ra.ulysses_self_attention(qs, ks, vs, mesh, "data", bias=bs)
+        else:
+            out = ra.ulysses_ring_attention(qs, ks, vs, mesh, "tensor", "data", bias=bs)
+        res[f"{name}/out"] = out.detach().numpy()
+        res[f"{name}/chunk"] = np.array(index)
+        if grad:
+            ((out - shard(tgt)) ** 2).sum().backward()
+            for t, x in (("dq", qs), ("dk", ks), ("dv", vs)):
+                res[f"{name}/{t}"] = x.grad.numpy()
+    # Ulysses with H % n != 0: every rank raises before any collective
+    try:
+        q = torch.zeros((1, world + 1, 8, 16))
+        ra.ulysses_self_attention(q, q, q, mesh1d, "data")
+        res["ulysses_bad_heads"] = np.array("no error")
+    except AssertionError as e:
+        res["ulysses_bad_heads"] = np.array(str(e))
+    return res
+
+
+def _unet_inputs(in_dir):
+    return dict(np.load(os.path.join(in_dir, "inputs.npz")))
+
+
+def suite_unet(mesh1d, rank, in_dir):
+    """The tiny UNet with CP (ring, Ulysses; a masked MasaCtrl control), the
+    masked overrides under CP, NTI under the ring."""
+    import torch
+
+    from image_editing_framework_torch.core.config import MasaCtrlConfig, NTIConfig
+    from image_editing_framework_torch.inversion import nti
+    from image_editing_framework_torch.models import configs
+    from image_editing_framework_torch.models.weights import load_weights
+    from image_editing_framework_torch.ops.attention import AttnSite
+    from image_editing_framework_torch.ops.controls import MasaCtrlAutoStep, MasaCtrlMaskStep, build_masactrl_control
+    from image_editing_framework_torch.pipelines import tiny_pipeline
+
+    inp = _unet_inputs(in_dir)
+    weights = dict(np.load(os.path.join(in_dir, "unet.npz")))
+    t = {key: torch.from_numpy(val) for key, val in inp.items()}
+    pipe = tiny_pipeline(num_steps=int(inp["steps"]), device="cpu")
+    load_weights(pipe.unet, weights)
+    unet = pipe.unet
+    res = {}
+    with torch.no_grad():
+        for mode in ("ring", "ulysses"):
+            unet.set_context_parallel(mesh1d, 64, mode)
+            res[f"unet_{mode}"] = unet(t["x"], 10, t["ctx"])[0].numpy()
+        unet.set_context_parallel(mesh1d, 64, "ring")
+        ctrl = build_masactrl_control(4, configs.TINY_UNET.num_transformer_blocks,
+                                      MasaCtrlConfig(start_step=0, start_layer=0), mask_s=t["mask_s"],
+                                      mask_t=t["mask_t"], device="cpu")
+        res["unet_masactrl_mask"] = unet(t["x4"], 10, t["ctx4"], ctrl.at_step(1))[0].numpy()
+        unet.set_context_parallel(None)
+
+        site = AttnSite(layer=0, place="down", seq_len=256, is_cross=False)
+        q, k, v = t["q"], t["k"], t["v"]
+        gate = torch.tensor(True)
+        mask = MasaCtrlMaskStep(step_gate=gate, layers=(0,), num_prompts=2, mask_s=t["mask_s"], mask_t=t["mask_t"])
+        auto = MasaCtrlAutoStep(step_gate=gate, layers=(0,), num_prompts=2)
+        running = {"down_l0_cross": t["running"]}
+        for mode in ("ring", "ulysses"):
+            res[f"override_mask_{mode}"] = mask.self_override(site, q, k, v, None, mesh1d, mode).numpy()
+            res[f"override_auto_{mode}"] = auto.self_override(site, q, k, v, running, mesh1d, mode).numpy()
+        res["override_auto_no_maps"] = auto.self_override(site, q, k, v, None, mesh1d).numpy()
+
+    # NTI under the ring: the embeddings and each step's inner iterations,
+    # then again with this rank's losses skewed (rank 0's stay): every rank
+    # must stop where rank 0 stops, or the ranks' collectives fall apart.
+    cfg = NTIConfig(num_inner_steps=int(inp["inner"]), epsilon=float(inp["epsilon"]))
+    unet.set_context_parallel(mesh1d, 64, "ring")
+    seq, stops = nti.null_text_inversion_batch(pipe, t["traj"][None], t["context"][None], cfg, return_stops=True)
+    res["nti_ring"], res["nti_ring_stops"] = seq[0].numpy(), np.array(stops)
+    losses = nti.nti_losses
+
+    def skewed(*args, **kwargs):
+        return losses(*args, **kwargs) + 1e3 * rank
+
+    nti.nti_losses = skewed
+    try:
+        _, stops = nti.null_text_inversion_batch(pipe, t["traj"][None], t["context"][None], cfg, return_stops=True)
+    finally:
+        nti.nti_losses = losses
+    res["nti_ring_skewed_stops"] = np.array(stops)
+    return res
+
+
+def suite_mesh():
+    """``make_mesh``'s shapes and placements on this group."""
+    from image_editing_framework_torch.parallel import mesh as mesh_lib
+
+    res = {}
+    for name, kwargs in (("default", {}), ("tensor2", {"tensor": 2})):
+        m = mesh_lib.make_mesh(device_type="cpu", **kwargs)
+        res[f"{name}/names"] = np.array(m.mesh_dim_names)
+        res[f"{name}/shape"] = np.array(m.shape)
+        res[f"{name}/data_sharding"] = np.array([repr(p) for p in mesh_lib.data_sharding(m)])
+        res[f"{name}/replicated"] = np.array([repr(p) for p in mesh_lib.replicated(m)])
+    try:
+        mesh_lib.make_mesh(data=3, device_type="cpu")
+        res["bad_product"] = np.array("no error")
+    except ValueError as e:
+        res["bad_product"] = np.array(str(e))
+    return res
+
+
+def main(argv):
+    suite, rank, world, store, out = argv[:5]
+    in_dir = argv[5] if len(argv) > 5 else ""
+    rank, world = int(rank), int(world)
+    import torch
+
+    torch.set_num_threads(1)
+    from image_editing_framework_torch.parallel import mesh as mesh_lib
+
+    got = mesh_lib.initialize_distributed(f"file://{store}", world, rank, backend="gloo",
+                                          timeout=datetime.timedelta(seconds=60))
+    try:
+        if suite == "mesh":
+            res = suite_mesh()
+        elif suite == "ring":
+            mesh2d = mesh_lib.make_mesh(data=2, tensor=2, device_type="cpu") if world == 4 else None
+            res = suite_ring(mesh_lib.make_mesh(device_type="cpu"), mesh2d, world)
+        else:
+            res = suite_unet(mesh_lib.make_mesh(device_type="cpu"), rank, in_dir)
+        res["rank"] = np.array(got)
+        np.savez(os.path.join(out, f"{suite}_{rank}.npz"), **res)
+    except Exception:
+        traceback.print_exc()
+        raise
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
