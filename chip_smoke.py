@@ -52,8 +52,10 @@ Phases, one line of output each (any failure exits non-zero):
      49408-entry CLIP BPE vocab) and as an LDM single file, named through
      ``sd_mapping.sd_maps`` ("1.5", "ghostv2") and loaded by
      ``cli.load_pipe`` (timed per component; the two loads bitwise equal),
-     then ``shims`` p2p ``edit_real`` (DDIM) on a 512² PNG and p2p
-     ``edit_syn``, exact launch counts, the PNGs read back;
+     then the pipeline cache (``registry.save_pipeline_cache``) of the
+     load restored into a fresh random pipeline, bitwise; ``shims`` p2p
+     ``edit_real`` (DDIM) on a 512² PNG and p2p ``edit_syn``, exact launch
+     counts, the PNGs read back;
      sweep path: the PIE-Bench sweep (``shims`` p2p ``test``) from that
      snapshot over a mini PIE of 512² JPEGs (three items in the default
      categories, one outside): with ``--save_inversions``, again (resume),
@@ -79,6 +81,9 @@ Phases, one line of output each (any failure exits non-zero):
      per-step embeddings; launch counts of every kernel read around it;
   6. profile: one UNet forward at the edit's and the inversion's batch under
      torch.profiler: device busy time, idle share, launches, top kernels;
+     on SD1.5 also ``utils/profiling.py``: one CFG-4 forward under
+     ``phase`` inside ``trace``, timed by ``Timer``, the written trace
+     naming the phase and the flash forward kernel;
   7. masactrl path: the same model through ``cli.invert(..., "ddim",
      "masactrl")`` and ``cli.run_method("masactrl", ...)`` (mutual), then
      edits alone with the union plan, a fixed mask and the auto mask, and a
@@ -117,13 +122,23 @@ Phases, one line of output each (any failure exits non-zero):
      ranks by checksum); (c) the SDXL main path under the ring (DDIM
      inversion, P2P replace edit, decode through ``cli.invert`` /
      ``cli.run_method``, 80 launches per UNet forward), its images equal
-     on both ranks;
+     on both ranks; (d) tensor parallelism (``parallel/sharding.py``) on a
+     data 1 x tensor 2 mesh of the same 2 ranks: (b)'s f32 SDXL UNet split
+     in place, the same forward within 1e-3 · max|ref| (70 launches); an
+     SD1.5 512² f32 CFG-4 forward under a P2P refine control with
+     LocalBlend (eps and the blend's records within 1e-3 · max|ref|, the
+     prompt encode under a split text tower within 1e-4, 16 launches); one
+     ``make_sharded_train_step`` step on an SD1.5 UNet at batch 2 (loss and
+     gradients within 1e-3 · max|ref| of the unsharded step, 16 / 16 / 16
+     launches); the ranks' outputs, records, losses and replicated weights
+     bitwise equal;
 then each phase's seconds, the kernels JSON line, the card line, and the
 result line last.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1255,9 +1270,6 @@ def phase_main_path(model):
 # (no weights or vocab files exist to read): the HF snapshot directory and
 # the LDM single file, from the same random weights, fp16 as published.
 
-SAFETENSORS_DTYPES = {torch.float64: "F64", torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
-                      torch.int64: "I64", torch.int32: "I32", torch.int16: "I16", torch.int8: "I8",
-                      torch.uint8: "U8", torch.bool: "BOOL"}
 CKPT_PROMPTS = ["a cat sitting on the grass", "a dog sitting on the grass"]
 # the sweep phase's mini PIE: (image path under annotation_images, source
 # prompt, target prompt, with PIE's [edit] brackets). Three items in the
@@ -1274,30 +1286,6 @@ SWEEP_PIE = [("0_random_140/000000000000.jpg", "a [cat] sitting on the grass", "
 CKPT_WORDS = " ".join(CKPT_PROMPTS + [p.replace("[", "").replace("]", "") for *_, s, t in SWEEP_PIE
                                       for p in (s, t)]).split()
 CLIP_VOCAB_SIZE = 49408  # <|startoftext|> 49406, <|endoftext|> 49407, as in CLIP's vocab.json
-
-
-def write_safetensors(tensors, path, dtype=None):
-    """Write {key: tensor} as a ``.safetensors`` file (the format's 8-byte
-    header length, JSON header padded to 8 bytes, raw little-endian data),
-    each floating tensor cast to ``dtype`` when given, one tensor at a time
-    through host memory. Returns the bytes of tensor data."""
-    def out_dtype(t):
-        return dtype if dtype is not None and t.is_floating_point() else t.dtype
-
-    header, offset = {"__metadata__": {"format": "pt"}}, 0
-    for key, t in tensors.items():
-        nbytes = t.numel() * out_dtype(t).itemsize
-        header[key] = {"dtype": SAFETENSORS_DTYPES[out_dtype(t)], "shape": list(t.shape),
-                       "data_offsets": [offset, offset + nbytes]}
-        offset += nbytes
-    blob = json.dumps(header, separators=(",", ":")).encode()
-    blob += b" " * (-len(blob) % 8)
-    with open(path, "wb") as f:
-        f.write(len(blob).to_bytes(8, "little") + blob)
-        for t in tensors.values():
-            data = t.detach().to(out_dtype(t)).cpu().contiguous().reshape(-1)
-            f.write(memoryview(data.view(torch.uint8).numpy()))
-    return offset
 
 
 def to_ldm_unet(d, cfg):
@@ -1455,12 +1443,14 @@ def write_snapshot(directory, parts, vocab, merges, tokenizers=("tokenizer",)):
     Returns the bytes of tensor data."""
     import os
 
+    from image_editing_framework_torch.models.loader import save_safetensors
+
     nbytes = 0
     for sub, module, name in parts:
         os.makedirs(os.path.join(directory, sub))
         extra = clip_position_ids() if sub.startswith("text_encoder") else {}
-        nbytes += write_safetensors(dict(module.state_dict(), **extra),
-                                    os.path.join(directory, sub, name + ".safetensors"), torch.float16)
+        nbytes += save_safetensors(dict(module.state_dict(), **extra),
+                                   os.path.join(directory, sub, name + ".safetensors"), torch.float16)
     for sub in tokenizers:
         write_tokenizer(os.path.join(directory, sub), vocab, merges)
     return nbytes
@@ -1471,9 +1461,11 @@ def write_single_file(state, directory, vocab, merges):
     tokenizer beside it. Returns (path, bytes of tensor data)."""
     import os
 
+    from image_editing_framework_torch.models.loader import save_safetensors
+
     os.makedirs(directory)
     path = os.path.join(directory, "model.safetensors")
-    nbytes = write_safetensors(state, path, torch.float16)
+    nbytes = save_safetensors(state, path, torch.float16)
     write_tokenizer(os.path.join(directory, "tokenizer"), vocab, merges)
     return path, nbytes
 
@@ -1600,6 +1592,30 @@ def unequal_tensors(name, a, b, w):
         a[k], w[k].to(torch.float16).to(a[k].dtype)))]
 
 
+def pipeline_cache_round_trip(pipe, cache_dir):
+    """``registry.save_pipeline_cache`` of the loaded ``pipe``, restored into
+    a fresh random pipeline (another seed) by ``restore_pipeline_cache``:
+    every tensor bitwise equal. Returns the seconds and the bytes."""
+    import os
+
+    from image_editing_framework_torch.models import registry
+    from image_editing_framework_torch.pipelines import random_pipeline
+
+    _, save_s = timed(lambda: registry.save_pipeline_cache(pipe, cache_dir))
+    fresh = random_pipeline(MODELS["sd"][0], num_steps=STEPS, dtype=pipe.dtype, seed=1, device=pipe.device)
+    _, restore_s = timed(lambda: registry.restore_pipeline_cache(fresh, cache_dir))
+    differ = [f"{name}.{key}" for name in ("unet", "vae", "text_encoder")
+              for key, value in getattr(fresh, name).state_dict().items()
+              if not torch.equal(value, getattr(pipe, name).state_dict()[key])]
+    if differ:
+        raise AssertionError(f"the restored pipeline cache differs in {len(differ)} tensors: {differ[:5]}")
+    del fresh
+    torch.cuda.empty_cache()
+    files = sorted(os.listdir(cache_dir))
+    return dict(save_s=save_s, restore_s=restore_s, files=files, bitwise_equal=True,
+                gb=sum(os.path.getsize(os.path.join(cache_dir, f)) for f in files) / 1e9)
+
+
 def phase_checkpoint_path(pipe, tmp):
     """The reference's own entry points on a checkpoint, SD1.5 at full
     width, bf16: ``pipe``'s weights (``random_pipeline("1.5", seed=0)``)
@@ -1608,7 +1624,9 @@ def phase_checkpoint_path(pipe, tmp):
     ``cli.load_pipe`` (timed per component; the two loads bitwise equal, and
     equal to the weights through fp16), then ``shims`` p2p ``edit_real``
     (DDIM inversion) on a 512² PNG the phase writes and p2p ``edit_syn``,
-    each with its exact flash-forward launches, PNGs read back. Returns the
+    each with its exact flash-forward launches, PNGs read back; between
+    them, the pipeline cache of the snapshot load saved and restored into a
+    fresh pipeline, bitwise (``pipeline_cache_round_trip``). Returns the
     launches and the snapshot directory (the sweep phase reads it)."""
     import os
     import shutil
@@ -1630,6 +1648,7 @@ def phase_checkpoint_path(pipe, tmp):
         if unequal:
             raise AssertionError(f"{len(unequal)} tensors differ between the snapshot load, the single-file "
                                  f"load and the weights through fp16: {unequal[:5]}")
+        cache = pipeline_cache_round_trip(loaded, os.path.join(tmp, "pipeline_cache"))
         vocab, _ = synthetic_clip_vocab(words)
         want_ids = [[vocab["<|startoftext|>"]] + [vocab[w + "</w>"] for w in p.split()] + [vocab["<|endoftext|>"]]
                     for p in CKPT_PROMPTS]
@@ -1693,7 +1712,7 @@ def phase_checkpoint_path(pipe, tmp):
          host_rss_after_gib=load["host_rss_after_gib"], host_peak_rss_gib=load["host_peak_rss_gib"],
          device_load_peak_gib=load["device_load_peak_gib"], single_file_load_s=ghost_load["s"],
          single_file_components=ghost_load["components"], loads_bitwise_equal=True,
-         edit_real=runs["edit_real"], edit_syn=runs["edit_syn"],
+         edit_real=runs["edit_real"], edit_syn=runs["edit_syn"], pipeline_cache=cache,
          main_path_image_s=EMITTED["main_path"]["image_s"], token_ids=want_ids, card=card_line())
     return runs["edit_real"]["flash_launches"] + runs["edit_syn"]["flash_launches"], snapshot
 
@@ -2043,6 +2062,7 @@ def write_clip_checkpoint(directory, words, device, seed=CLIP_SEED):
     import os
 
     from image_editing_framework_torch.models import clip
+    from image_editing_framework_torch.models.loader import save_safetensors
     from image_editing_framework_torch.pipelines import _build
 
     vision_cfg = clip.CLIP_VIT_B32_VISION
@@ -2050,8 +2070,8 @@ def write_clip_checkpoint(directory, words, device, seed=CLIP_SEED):
                   torch.float32, seed)
     vision = _build(clip.CLIPVisionModel, vision_cfg, device, torch.float32, seed + 1)
     os.makedirs(directory, exist_ok=True)
-    nbytes = write_safetensors(dict(text.state_dict(), **vision.state_dict(), **clip_position_ids()),
-                               os.path.join(directory, "model.safetensors"), torch.float16)
+    nbytes = save_safetensors(dict(text.state_dict(), **vision.state_dict(), **clip_position_ids()),
+                              os.path.join(directory, "model.safetensors"), torch.float16)
     write_tokenizer(os.path.join(directory, "tokenizer"), *synthetic_clip_vocab(words, size=text.config.vocab_size))
     return nbytes
 
@@ -2062,6 +2082,7 @@ def write_lpips_weights(path):
     ``features.N.{weight,bias}`` and LPIPS's ``linN.model.1.weight``.
     Returns the bytes of tensor data."""
     from image_editing_framework_torch.eval import lpips
+    from image_editing_framework_torch.models.loader import save_safetensors
 
     state = lpips.LPIPS(None, device="cpu").net.state_dict()
     tv = {}
@@ -2070,7 +2091,7 @@ def write_lpips_weights(path):
                                                                     for leaf in ("weight", "bias"))
     for i in range(len(lpips._TAPS)):
         tv[f"lin{i}.model.1.weight"] = state[f"lin_{i}.weight"]
-    return write_safetensors(tv, path)
+    return save_safetensors(tv, path)
 
 
 def tower_err(card, cpu):
@@ -2402,9 +2423,37 @@ def phase_nti_path(model, pipe):
     return counts, (last, uncond_seq)
 
 
+def profiling_check(forward, sites):
+    """``utils/profiling.py`` on the card: one UNet forward under
+    ``phase("unet_forward")`` inside ``trace(dir)``, timed by
+    ``Timer.measure``; the Chrome trace it writes must name the phase and
+    the flash forward kernel."""
+    import os
+
+    from image_editing_framework_torch.utils import profiling
+
+    timer = profiling.Timer()
+    with tempfile.TemporaryDirectory(prefix="ief_trace_") as log_dir:
+        with profiling.trace(log_dir):
+            with timer.measure("unet_forward"), profiling.phase("unet_forward"):
+                forward()
+        path = os.path.join(log_dir, "trace.json")
+        trace_mb = os.path.getsize(path) / 1e6
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    phases = [e for e in events if e.get("name") == "unet_forward"]
+    flash = [e for e in events if e.get("cat") == "kernel" and "flash_fwd" in e.get("name", "")]
+    if not phases or not flash:
+        raise AssertionError(f"the trace names the phase {len(phases)} times and the flash forward kernel "
+                             f"{len(flash)} times")
+    return dict(phase_events=len(phases), flash_fwd_kernels=len(flash), sites=sites, trace_mb=trace_mb,
+                timer_s=timer.times["unet_forward"], kernel_events=sum(e.get("cat") == "kernel" for e in events))
+
+
 def phase_profile(model, pipe, lat4, ctx, added):
     """Device busy time of one UNet forward under torch.profiler (the sum of
-    kernel durations on the one stream), against its unprofiled time."""
+    kernel durations on the one stream), against its unprofiled time; on
+    SD1.5 also ``profiling_check``."""
     from torch.profiler import ProfilerActivity, profile
 
     added1 = None if added is None else {k: v[2:3] for k, v in added.items()}
@@ -2425,6 +2474,9 @@ def phase_profile(model, pipe, lat4, ctx, added):
              idle_share=1.0 - busy_ms / wall_ms, launches_per_forward=sum(e.count for e in kernels) / PROFILE_REPS,
              flash_ms=flash_ms, flash_share_of_busy=flash_ms / busy_ms,
              top=[[e.key[:60], e.self_device_time_total / PROFILE_REPS / 1e3] for e in top])
+    if model == "sd":
+        emit("profiling", **profiling_check(lambda: pipe.unet_apply(lat4, 501, ctx, None, added), SITES["sd"]),
+             batch=4, card=card_line())
 
 
 # forward calls per gated site of the auto-mask variant: normal, mutual and,
@@ -2910,11 +2962,13 @@ def cp_kernel_checks(mesh, mesh2d, world, device):
     return dict(forward=rows, backward=grads, times=times)
 
 
-def cp_unet_forward(mesh, device):
+def cp_unet_forward(mesh, device, tp_mesh=None):
     """(b): one SDXL 1024² CFG-4 UNet forward, f32, seeded random weights
     built in each rank, with the ring and with Ulysses against the same
     forward without CP on the same rank; the ranks' weights equal by an
-    all-gathered checksum; exact launches."""
+    all-gathered checksum; exact launches. With ``tp_mesh``, then (d1) on
+    the same module: split over "tensor", the same forward
+    (``tp_unet_forward``), under ``res["tp"]``."""
     from image_editing_framework_torch.models import configs
     from image_editing_framework_torch.models.unet import UNet2DCondition
     from image_editing_framework_torch.parallel import ring_attention as ra
@@ -2953,7 +3007,9 @@ def cp_unet_forward(mesh, device):
             if got != (want, 0, 0) or not err <= tol:
                 raise AssertionError(f"the SDXL UNet with {mode} CP: {res[mode]}, launches {got}")
     res["checksum"] = checksum.tolist()
-    del unet
+    if tp_mesh is not None:
+        res["tp"] = tp_unet_forward(unet, tp_mesh, lat, 501, ctx, added, ref)
+    del unet, ref
     torch.cuda.empty_cache()
     return res
 
@@ -2997,11 +3053,277 @@ def cp_main_path(mesh, device):
                 image_means=[float(img.mean()) for img in images], peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
-def cp_rank(rank, world, store, out_dir, parts="abc"):
+TP_RTOL = 1e-3  # each tp check against the same work unsharded in the rank, of max|ref|
+TP_ENCODE_RTOL = 1e-4  # the prompt encode under TP, of max|ref|
+TP_TRAIN_BATCH = 2
+TP_GRAD_FLOOR = 1e-3  # a gradient group's max|ref| counts as at least this share of the whole gradient's
+TP_GRAD_FAULTS = ("copy", "dkv")  # planted in (d3); each must put the q/k/v gradients over their limit
+TP_STEP = 1  # the P2P refine control's step of the control forward: its cross-replace window is open
+
+
+def tp_counts(device):
+    """(forward, dQ, dK/dV) launches since the counts were set to 0; on the
+    CPU (the rehearsal) the wrappers run their plain versions and count
+    nothing."""
+    return launch_counts() if device.type == "cuda" else (0, 0, 0)
+
+
+def tp_want(device, *counts):
+    return tuple(counts) if device.type == "cuda" else (0, 0, 0)
+
+
+def tp_digest(x):
+    """A bitwise fingerprint of a tensor (the ranks' results must match)."""
+    import hashlib
+
+    return hashlib.sha256(x.detach().float().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def tp_synchronize(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def tp_held(name, got, ref, rtol):
+    """{max_abs_err, limit}: ``got`` within rtol · max|ref| of ``ref``, both
+    finite, or fail naming ``name``."""
+    err, limit = (got.float() - ref.float()).abs().max().item(), rtol * ref.float().abs().max().item()
+    if not (err <= limit and torch.isfinite(got).all()):
+        raise AssertionError(f"tp {name}: max |err| {err} over the limit {limit} (or not finite)")
+    return dict(max_abs_err=err, limit=limit)
+
+
+def tp_unet_forward(unet, mesh, lat, t, ctx, added, ref):
+    """(d1): ``unet`` (whose unsharded forward gave ``ref``) split in place
+    over ``mesh``'s "tensor" axis, the same forward again: within TP_RTOL of
+    ``ref``, one forward launch per site on H/n heads."""
+    from image_editing_framework_torch.parallel import sharding
+
+    sharding.shard_params(unet, mesh)
+    tp_synchronize(lat.device)
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    with torch.no_grad():
+        out = unet(lat, t, ctx, None, added)[0]
+    tp_synchronize(lat.device)
+    seconds, got = time.perf_counter() - t0, tp_counts(lat.device)
+    want = tp_want(lat.device, unet.config.num_transformer_blocks, 0, 0)
+    if got != want:
+        raise AssertionError(f"tp the UNet forward launched {got}, expected {want}")
+    return dict(tp_held("unet forward", out, ref, TP_RTOL), launches=got[0], expected_launches=want[0],
+                seconds=seconds, digest=tp_digest(out))
+
+
+def tp_control_forward(pipe, mesh, side, latent_side):
+    """(d2): a CFG-4 UNet forward under a P2P refine control with
+    LocalBlend at a step where the blend records the 256-token sites, and
+    the prompt encode, unsharded and then with the UNet and the text tower
+    split over "tensor": the eps and the blend's records within TP_RTOL,
+    the encode within TP_ENCODE_RTOL; one forward launch per site."""
+    from image_editing_framework_torch.core.config import P2PConfig
+    from image_editing_framework_torch.methods.common import prepare_conditioning
+    from image_editing_framework_torch.ops.controls import build_p2p_control
+    from image_editing_framework_torch.parallel import sharding
+
+    device = pipe.device
+    cfg = P2PConfig(edit_type="refine", blend_words=(("cat",), ("dog",)))
+    ctrl = build_p2p_control(PROMPTS, pipe.tokenizer, STEPS, cfg, record_blend=True, device=device).at_step(TP_STEP)
+    gen = torch.Generator(device=device).manual_seed(17)
+    lat = torch.randn(4, latent_side, latent_side, 4, device=device, generator=gen)
+    t = int(pipe.scheduler.timesteps[TP_STEP])
+    with torch.no_grad():
+        ctx0, _ = prepare_conditioning(pipe, PROMPTS, side, side)
+        eps0, rec0 = pipe.unet(lat, t, ctx0, ctrl)
+        sharding.shard_params(pipe.unet, mesh)
+        sharding.shard_params(pipe.text_encoder, mesh)
+        ctx1, _ = prepare_conditioning(pipe, PROMPTS, side, side)
+        tp_synchronize(device)
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        eps1, rec1 = pipe.unet(lat, t, ctx0, ctrl)  # the unsharded context: the forward's own error
+        tp_synchronize(device)
+        seconds, got = time.perf_counter() - t0, tp_counts(device)
+    want = tp_want(device, pipe.unet.config.num_transformer_blocks, 0, 0)
+    if got != want or sorted(rec1) != sorted(rec0) or not rec0:
+        raise AssertionError(f"tp the control forward launched {got} (expected {want}), recorded {sorted(rec1)} "
+                             f"(unsharded: {sorted(rec0)})")
+    blend = {key: tp_held(f"LocalBlend record {key}", rec1[key], rec0[key], TP_RTOL) for key in rec0}
+    return dict(eps=tp_held("control forward eps", eps1, eps0, TP_RTOL), blend_records=blend,
+                encode=tp_held("prompt encode", ctx1, ctx0, TP_ENCODE_RTOL), launches=got[0],
+                expected_launches=want[0], seconds=seconds, digest=tp_digest(eps1),
+                blend_digest=tp_digest(torch.cat([rec1[k].flatten() for k in sorted(rec1)])))
+
+
+def tp_train_step(unet, mesh, latent_side):
+    """(d3): one ``make_sharded_train_step`` step on ``unet`` at batch
+    TP_TRAIN_BATCH against the same loss and gradients unsharded in the
+    rank: the loss within TP_RTOL of |ref|; every gradient (gathered to
+    full shape) within TP_RTOL of its group's max|ref| (``tp_grad_groups``);
+    exact forward, dQ and dK/dV launches (every site needs the weights'
+    gradients); the replicated weights' SHA-256 after the update, for the
+    ranks to compare; everything finite. Before the step, on the split
+    weights, each of TP_GRAD_FAULTS planted in turn (``tp_planted``) must
+    put the attention q/k/v group over its limit."""
+    from image_editing_framework_torch.parallel import sharding
+
+    device = next(unet.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(18)
+    lat, target = (torch.randn(TP_TRAIN_BATCH, latent_side, latent_side, 4, device=device, generator=gen)
+                   for _ in range(2))
+    ctx = torch.randn(TP_TRAIN_BATCH, 77, unet.config.cross_attention_dim, device=device, generator=gen)
+    unet.requires_grad_(True)
+
+    def gradients():
+        for p in unet.parameters():
+            p.grad = None
+        eps, _ = unet(lat, 501, ctx)
+        loss = torch.mean((eps - target) ** 2)
+        loss.backward()
+        return loss.detach()
+
+    ref_loss = gradients()
+    ref_grads = {}
+    for name, p in unet.named_parameters():
+        ref_grads[name], p.grad = p.grad, None
+    init, step = sharding.make_sharded_train_step(unet, mesh)
+    init(unet)
+    faults = {}
+    for fault in TP_GRAD_FAULTS:
+        with tp_planted(fault):
+            gradients()
+        groups, _ = tp_grad_groups(unet, sharding.gather_params(unet, mesh, grads=True), ref_grads)
+        faults[fault] = {k: g["max_abs_err"] / g["limit"] for k, g in groups.items()}
+        if not faults[fault]["attention q/k/v"] > 1:
+            raise AssertionError(f"tp the planted fault {fault!r} passed the q/k/v gradients' gate: {groups}")
+    for p in unet.parameters():
+        p.grad = None
+    tp_synchronize(device)
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    loss = step(lat, 501, ctx, target)
+    tp_synchronize(device)
+    seconds, got = time.perf_counter() - t0, tp_counts(device)
+    sites = unet.config.num_transformer_blocks
+    want = tp_want(device, sites, sites, sites)
+    if got != want:
+        raise AssertionError(f"tp the train step launched (forward, dQ, dK/dV) {got}, expected {want}")
+    params, grads = dict(unet.named_parameters()), sharding.gather_params(unet, mesh, grads=True)
+    groups, scale = tp_grad_groups(unet, grads, ref_grads)
+    err = max(group["max_abs_err"] for group in groups.values())
+    finite = all(torch.isfinite(g).all() for g in grads.values()) and all(
+        torch.isfinite(p).all() for p in params.values())
+    del grads, ref_grads
+    specs = sharding.unet_param_specs(unet)
+    over = sorted(k for k, g in groups.items() if not g["max_abs_err"] <= g["limit"])
+    if over or not finite:
+        raise AssertionError(f"tp the train step's gradients: groups over their limits {over} (or not finite: "
+                             f"{not finite}); whole max|ref| {scale}, every group {groups}")
+    loss_held = tp_held("train step loss", loss, ref_loss, TP_RTOL)
+    replicated = [p.detach().flatten() for n, p in params.items() if not isinstance(specs[n], sharding.Shard)]
+    return dict(loss=loss.item(), ref_loss=ref_loss.item(), loss_held=loss_held, grad_max_abs_err=err,
+                grad_max=scale, grad_groups=groups, planted_faults_err_over_limit=faults, launches=list(got),
+                expected_launches=list(want), seconds=seconds, replicated_tensors=len(replicated),
+                replicated_digest=tp_digest(torch.cat(replicated)))
+
+
+def tp_grad_groups(unet, grads, ref_grads):
+    """({group: leaves, max|ref|, max |err|, limit}, the whole gradient's
+    max|ref|) of full-shape ``grads`` against ``ref_grads``: each group
+    (``tp_grad_group``) held at TP_RTOL of its own max|ref|, floored at
+    TP_GRAD_FLOOR of the whole gradient's."""
+    scale = max(g.abs().max().item() for g in ref_grads.values())
+    groups = {}
+    for name, ref in ref_grads.items():
+        group = groups.setdefault(tp_grad_group(unet, name), dict(leaves=0, max=0.0, max_abs_err=0.0))
+        group["leaves"] += 1
+        group["max"] = max(group["max"], ref.abs().max().item())
+        group["max_abs_err"] = max(group["max_abs_err"], (grads[name] - ref).abs().max().item())
+    for group in groups.values():
+        group["limit"] = TP_RTOL * max(group["max"], TP_GRAD_FLOOR * scale)
+    return groups, scale
+
+
+@contextlib.contextmanager
+def tp_planted(fault):
+    """A planted tensor-parallel fault that the train step's gradient gate
+    must reject: ``"copy"``, ``copy_to_tensor_parallel``'s backward without
+    its all-reduce (each rank's input gradient only its heads' share);
+    ``"dkv"``, the attention backward's dK and dV swapped."""
+    from image_editing_framework_torch.ops import flash_attention as fa
+    from image_editing_framework_torch.parallel import sharding
+
+    if fault == "copy":
+        owner, name, planted = sharding._CopyToTensorParallel, "backward", staticmethod(lambda ctx, g: (g, None))
+    else:
+        real_bwd = fa.flash_attention_bwd
+
+        def planted(*args, **kwargs):
+            dq, dk, dv = real_bwd(*args, **kwargs)
+            return dq, dv, dk
+
+        owner, name = fa, "flash_attention_bwd"
+    real = owner.__dict__[name]
+    setattr(owner, name, planted)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def tp_grad_group(unet, name):
+    """The group of a UNet parameter whose gradients the train step's gate
+    holds at the group's own max: the attention's q/k/v projections (the
+    dQ and dK/dV kernels' operands), its output projections, the
+    feed-forwards, the convolutions, the norms, and every other weight."""
+    layer = unet.get_submodule(name.rpartition(".")[0])
+    if any(name.endswith(f".{p}.{leaf}") for p in ("to_q", "to_k", "to_v") for leaf in ("weight", "bias")):
+        return "attention q/k/v"
+    if ".to_out." in name:
+        return "attention out"
+    if ".ff." in name:
+        return "feed-forward"
+    if isinstance(layer, torch.nn.Conv2d):
+        return "convolutions"
+    if isinstance(layer, (torch.nn.GroupNorm, torch.nn.LayerNorm)):
+        return "norms"
+    return "other"
+
+
+def tp_parts(mesh, device, tiny=False):
+    """(d2) and (d3) on SD1.5 at 512², f32 (``tiny``: the tiny pipeline at
+    32², the CPU rehearsal), seeded random weights built in each rank.
+    cuDNN's deterministic algorithms, so that the ranks' replicated
+    gradients, and the weights after the update, are bitwise equal."""
+    from image_editing_framework_torch.models import configs
+    from image_editing_framework_torch.models.unet import UNet2DCondition
+    from image_editing_framework_torch.pipelines import _build, random_pipeline, tiny_pipeline
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        if tiny:  # the tiny VAE halves the side: 32² images, 16² latents
+            pipe, side, latent_side, cfg = tiny_pipeline(num_steps=STEPS, device=device), 32, 16, configs.TINY_UNET
+            pipe.tokenizer.encode(" ".join(PROMPTS))
+        else:
+            pipe = random_pipeline(MODELS["sd"][0], num_steps=STEPS, dtype=torch.float32, seed=0, device=device)
+            side, latent_side, cfg = MODELS["sd"][2], MODELS["sd"][2] // 8, configs.SD15_UNET
+        res = dict(control=tp_control_forward(pipe, mesh, side, latent_side))
+        del pipe
+        res["train"] = tp_train_step(_build(UNet2DCondition, cfg, device, torch.float32, 1), mesh, latent_side)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def cp_rank(rank, world, store, out_dir, parts="abcd"):
     """One rank of a cp_path group (its own process): join the group over
     gloo on the one card, or over NCCL with a card per rank; run (a), and on
-    2 ranks also (b) and (c) (those of ``parts`` asked for); write
-    ``rank<r>.json``. Returns the exit code."""
+    2 ranks also (b), (c) and (d) (those of ``parts`` asked for; (d),
+    tensor parallelism, on a data 1 x tensor 2 mesh of the same ranks, its
+    first check on (b)'s module when (b) runs); write ``rank<r>.json``.
+    Returns the exit code."""
     import datetime
 
     from image_editing_framework_torch.parallel import mesh as mesh_lib
@@ -3020,12 +3342,19 @@ def cp_rank(rank, world, store, out_dir, parts="abc"):
         t0 = time.perf_counter()
         res = dict(rank=rank, world=world, backend=backend, kernels=cp_kernel_checks(mesh, mesh2d, world, device))
         res["kernels_s"] = time.perf_counter() - t0
+        tp_mesh = mesh_lib.make_mesh(data=1, tensor=2, device_type="cuda") if world == 2 and "d" in parts else None
         if world == 2 and "b" in parts:
             t0 = time.perf_counter()
-            res["unet"] = cp_unet_forward(mesh, device)
+            res["unet"] = cp_unet_forward(mesh, device, tp_mesh)
             res["unet_s"] = time.perf_counter() - t0
         if world == 2 and "c" in parts:
             res["main"] = cp_main_path(mesh, device)
+        if tp_mesh is not None:
+            t0 = time.perf_counter()
+            res["tp"] = tp_parts(tp_mesh, device)
+            if "b" in parts:
+                res["tp"]["unet"] = res["unet"].pop("tp")
+            res["tp_s"] = time.perf_counter() - t0
         with open(f"{out_dir}/rank{rank}.json", "w") as f:
             json.dump(res, f)
     finally:
@@ -3033,7 +3362,7 @@ def cp_rank(rank, world, store, out_dir, parts="abc"):
     return 0
 
 
-def cp_group(world, root, parts="abc"):
+def cp_group(world, root, parts="abcd"):
     """Run ``cp_rank`` on ``world`` processes; returns their results. A rank
     that exits non-zero, or a group past ``CP_GROUP_TIMEOUT_S``, kills every
     rank and fails with the ranks' output."""
@@ -3106,7 +3435,32 @@ def phase_cp_path():
          note="one card: both ranks share it and gloo copies every rotation through host memory; these seconds "
               "say nothing about scaling over several cards", card=card_line())
     bwd = sum(row["launches"][0] for row in results[2][0]["kernels"]["backward"])
-    return main["launches"], (bwd, bwd)
+    return main["launches"], (bwd, bwd), tp_line(two)
+
+
+def tp_line(ranks):
+    """Holds the two ranks' tensor-parallel results (part (d)) to each
+    other, emits the ``tp`` line, and returns rank 0's (forward, dQ, dK/dV)
+    launches of the three checks."""
+    first, second = (res["tp"] for res in ranks)
+    for key in ("unet", "control", "train"):
+        mine, other = first[key], second[key]
+        for field in ("digest", "blend_digest", "replicated_digest", "loss", "launches"):
+            if mine.get(field) != other.get(field):
+                raise AssertionError(f"tp {key}: the ranks' {field} differ: {mine.get(field)} / {other.get(field)}")
+    fwd = first["unet"]["launches"] + first["control"]["launches"] + first["train"]["launches"][0]
+    emit("tp", world=2, mesh={"data": 1, "tensor": 2}, backend=ranks[0]["backend"],
+         unet=dict(model="SDXL base UNet (random weights, seed 0; (b)'s module, split in place)", resolution=1024,
+                   dtype="float32", batch=4, **first["unet"]),
+         control=dict(model="SD1.5 (random weights, seed 0)", resolution=512, dtype="float32", batch=4,
+                      control="P2P refine with LocalBlend, step 1", **first["control"]),
+         train=dict(model="SD1.5 UNet (random weights, seed 1)", resolution=512, dtype="float32",
+                    batch=TP_TRAIN_BATCH, optimizer="Adam, lr 1e-4", **first["train"]),
+         ranks_equal=True, seconds=ranks[0]["tp_s"] + first["unet"]["seconds"],
+         seconds_by_rank=[res["tp_s"] for res in ranks],
+         note="two ranks on one card over gloo: every all-reduce goes through host memory, so these seconds say "
+              "nothing about tensor parallelism's speed over cards", card=card_line())
+    return fwd, first["train"]["launches"][1], first["train"]["launches"][2]
 
 
 def main() -> int:
@@ -3133,7 +3487,7 @@ def main() -> int:
         launches[model], unet_ms[model], profile_args = run(prefix + "main_path", phase_main_path, model)
         if model == "sd":
             # the SD1.5 snapshot serves the checkpoint phase and the sweep
-            with tempfile.TemporaryDirectory(prefix="ief_checkpoint_", dir=scratch_base(5, "checkpoint_disk")) as tmp:
+            with tempfile.TemporaryDirectory(prefix="ief_checkpoint_", dir=scratch_base(8, "checkpoint_disk")) as tmp:
                 launches["checkpoint"], snapshot = run("checkpoint_path", phase_checkpoint_path, profile_args[0], tmp)
                 launches["sweep"], sweep_runs = run("sweep_path", phase_sweep_path, tmp, snapshot)
                 launches["serve"] = run("serve_path", phase_serve_path, tmp, snapshot)
@@ -3152,7 +3506,7 @@ def main() -> int:
         del profile_args, nti, inversion  # the next model needs the card's memory
         torch.cuda.empty_cache()
     launches["refiner"] = run("refiner", phase_refiner)
-    launches["cp"], cp_bwd = run("cp_path", phase_cp_path)
+    launches["cp"], cp_bwd, tp_launches = run("cp_path", phase_cp_path)
     emit("seconds", **seconds)
     for model in MODELS:
         fwd, bwd = sums[model], bwd_sums[model]["all"]
@@ -3185,15 +3539,16 @@ def main() -> int:
         "replaces": f"{tpu}:{line}", "also_replaces": f"{tpu}:{line_t}",
         "launches": sum(counts[i] for counts in bwd_launches.values())
         + sum(counts[i + 1] for runs in p2z_runs.values() for counts in runs.values())
-        + sum(counts[i + 1] for counts in validation) + cp_bwd[i],
+        + sum(counts[i + 1] for counts in validation) + cp_bwd[i] + tp_launches[i + 1],
         "launches_by_path": {"nti_path": bwd_launches["sd"][i], "xl_nti_path": bwd_launches["xl"][i],
                              "masactrl_path": 0, "xl_masactrl_path": 0, "pnp_path": 0, "xl_pnp_path": 0,
                              "p2z_path": sum(counts[i + 1] for counts in p2z_runs["sd"].values()),
                              "xl_p2z_path": sum(counts[i + 1] for counts in p2z_runs["xl"].values()),
                              "validation_path": validation[0][i + 1], "validation_rerun": validation[1][i + 1],
-                             "cp_path": cp_bwd[i]},
+                             "cp_path": cp_bwd[i], "tp_path": tp_launches[i + 1]},
         "cp_path_launches": "rank 0's: the ring's backward at SDXL's 4096-token site, batch 1 and 2, bf16 and f32, "
                             "on 2 ranks (2 of each kernel per call)",
+        "tp_path_launches": "rank 0's: the SD1.5 512² train step under tensor parallelism on 2 ranks, f32 (16)",
         "max_abs_err": bwd_worst[torch.bfloat16][kernel], "max_abs_err_f32": bwd_worst[torch.float32][kernel],
         **at(bwd_sums["sd"][kernel], *device), "work": work["sd"],
         "at_xl": dict(at(bwd_sums["xl"][kernel], *device), work=work["xl"]),
@@ -3222,7 +3577,7 @@ def main() -> int:
     fwd = {
         "name": "flash_fwd", "route": "cuda", "source": "image_editing_framework_torch/csrc/flash_fwd.cu",
         "replaces": f"{tpu}:76", "also_replaces": f"{tpu}:205",
-        "launches": sum(launches.values()),
+        "launches": sum(launches.values()) + tp_launches[0],
         "launches_by_path": {"main_path": launches["sd"], "checkpoint_path": launches["checkpoint"],
                              "sweep_path": launches["sweep"], "serve_path": launches["serve"],
                              "validation_path": launches["validation"],
@@ -3232,8 +3587,10 @@ def main() -> int:
                              "masactrl_path": launches["masactrl"], "xl_masactrl_path": launches["xl_masactrl"],
                              "pnp_path": launches["pnp"], "xl_pnp_path": launches["xl_pnp"],
                              "p2z_path": launches["p2z"], "xl_p2z_path": launches["xl_p2z"],
-                             "refiner": launches["refiner"], "cp_path": launches["cp"]},
+                             "refiner": launches["refiner"], "cp_path": launches["cp"], "tp_path": tp_launches[0]},
         "cp_path_launches": "rank 0's: the SDXL 1024² main path under the ring on 2 ranks (80 per UNet forward)",
+        "tp_path_launches": "rank 0's under tensor parallelism on 2 ranks: the f32 SDXL 1024² UNet forward (70), "
+                            "the SD1.5 512² control forward (16) and train step (16)",
         "p2z_launches_by_run": p2z_runs,
         "sweep_launches_by_run": sweep_runs,
         "masactrl_launches_by_run": masa_runs,

@@ -122,3 +122,11 @@ def add_noise(sched: DDIMSchedule, x0: torch.Tensor, noise: torch.Tensor, t: int
     """Forward diffusion q(x_t | x_0) at timestep ``t``."""
     alpha = sched.alphas_cumprod[t].to(x0.dtype)
     return torch.sqrt(alpha).item() * x0 + torch.sqrt(1.0 - alpha).item() * noise
+
+
+def scale_model_input(sample: torch.Tensor, t) -> torch.Tensor:
+    """DDIM needs no input scaling; the identity, for the API of schedulers
+    that do (reference: pnp/model/sd_utils.py:94 calls
+    ``scheduler.scale_model_input``)."""
+    del t
+    return sample

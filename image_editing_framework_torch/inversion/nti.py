@@ -124,9 +124,10 @@ def _nti_loop_group(
     image that has stopped stays in the batch with its embedding and Adam
     state frozen, as JAX's batched ``while_loop`` freezes a finished lane; the
     loop ends when every image has stopped. The host reads the (G,) loss
-    vector once per iteration. Under context parallelism (``cp_mesh``, the
-    UNet's) every rank takes the mesh's first rank's loss vector
-    (``lockstep``), so all ranks stop at the same iteration."""
+    vector once per iteration. Under context or tensor parallelism
+    (``cp_mesh``, the UNet's ``lockstep_mesh``) every rank takes the mesh's
+    first rank's loss vector (``lockstep``), so all ranks stop at the same
+    iteration."""
     s = sched.num_steps
     g = trajectories.shape[0]
     if added_unconds is None:
@@ -246,7 +247,7 @@ def null_text_inversion_batch(
     seqs, stops = _nti_loop_group(unet, pipe.scheduler, trajectories, contexts[:, 1:], contexts[:, :1],
                                   guidance_scale, cfg, reset_each_step=pipe.model_type == "xl",
                                   added_conds=added_conds, added_unconds=added_unconds,
-                                  cp_mesh=pipe.unet.cp_mesh)
+                                  cp_mesh=pipe.unet.lockstep_mesh)
     return (seqs, stops) if return_stops else seqs
 
 
@@ -265,7 +266,7 @@ def null_text_inversion(
     unet = grad_unet(pipe, trajectory.shape[-3], cfg.remat)
     return _nti_loop(unet, pipe.scheduler, trajectory, context[1:], context[:1], guidance_scale, cfg,
                      reset_each_step=pipe.model_type == "xl", added_cond=added_cond, added_uncond=added_uncond,
-                     cp_mesh=pipe.unet.cp_mesh)
+                     cp_mesh=pipe.unet.lockstep_mesh)
 
 
 # Inner Adam iterations run since the count was last set to 0 (of a group,

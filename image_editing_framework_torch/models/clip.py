@@ -27,6 +27,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from image_editing_framework_torch.parallel.sharding import (
+    copy_to_tensor_parallel,
+    row_parallel_linear,
+    tensor_parallel_size,
+)
 from image_editing_framework_torch.utils.images import resize
 
 
@@ -66,33 +71,48 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 class CLIPAttention(nn.Module):
+    """Under tensor parallelism (``tp_group``, set by ``parallel/sharding.py
+    shard_params``) q/k/v_proj are column-parallel and out_proj
+    row-parallel: this rank runs its num_heads/n heads."""
+
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         self.cfg = cfg
         d = cfg.hidden_size
         self.q_proj, self.k_proj, self.v_proj, self.out_proj = (nn.Linear(d, d) for _ in range(4))
+        self.tp_group = None
+
+    @property
+    def heads(self) -> int:
+        return self.cfg.num_heads
 
     def forward(self, x, causal_mask):
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp_group
         b, n, _ = x.shape
         d = cfg.hidden_size // cfg.num_heads
-        q, k, v = (f(x).view(b, n, cfg.num_heads, d).transpose(1, 2) for f in (self.q_proj, self.k_proj, self.v_proj))
+        heads = cfg.num_heads // tensor_parallel_size(tp)
+        x = copy_to_tensor_parallel(x, tp)
+        q, k, v = (f(x).view(b, n, heads, d).transpose(1, 2) for f in (self.q_proj, self.k_proj, self.v_proj))
         s = torch.matmul(q, k.transpose(-1, -2)).float() / math.sqrt(d)
         s = torch.where(causal_mask, s, torch.finfo(torch.float32).min)
         p = torch.softmax(s, dim=-1).to(v.dtype)
-        out = torch.matmul(p, v).transpose(1, 2).reshape(b, n, cfg.hidden_size)
-        return self.out_proj(out)
+        out = torch.matmul(p, v).transpose(1, 2).reshape(b, n, heads * d)
+        return row_parallel_linear(self.out_proj, out, tp)
 
 
 class CLIPMLP(nn.Module):
+    """Under tensor parallelism fc1 is column-parallel and fc2 row-parallel."""
+
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         self.act = cfg.hidden_act
         self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.tp_group = None
 
     def forward(self, x):
-        return self.fc2(_act(self.act, self.fc1(x)))
+        tp = self.tp_group
+        return row_parallel_linear(self.fc2, _act(self.act, self.fc1(copy_to_tensor_parallel(x, tp))), tp)
 
 
 class CLIPLayer(nn.Module):

@@ -14,8 +14,9 @@ and no transpose (the JAX package's ``unet_key`` / ``vae_key`` /
 ``MmapSafetensors`` reads a file in plain Python: the 8-byte header length,
 the JSON header, then every tensor as a ``torch.frombuffer`` view over a
 private (copy-on-write) memory map, so nothing is read before a tensor is
-copied to its module, and BF16 comes back as ``torch.bfloat16``. No
-``safetensors`` package is needed.
+copied to its module, and BF16 comes back as ``torch.bfloat16``.
+``save_safetensors`` writes the same format. No ``safetensors`` package is
+needed.
 """
 
 from __future__ import annotations
@@ -100,6 +101,32 @@ class MmapSafetensors:
     def items(self) -> Iterator[Tuple[str, torch.Tensor]]:
         for key in self.meta:
             yield key, self[key]
+
+
+NAMES = {dtype: name for name, dtype in DTYPES.items()}
+
+
+def save_safetensors(tensors: Mapping[str, torch.Tensor], path: str, dtype: Optional[torch.dtype] = None) -> int:
+    """Write {key: tensor} as a ``.safetensors`` file (the format's 8-byte
+    header length, JSON header padded to 8 bytes, raw little-endian data in
+    key order), each floating tensor cast to ``dtype`` when given, one
+    tensor at a time through host memory. Returns the bytes of tensor data."""
+    def out_dtype(t):
+        return dtype if dtype is not None and t.is_floating_point() else t.dtype
+
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for key, t in tensors.items():
+        nbytes = t.numel() * out_dtype(t).itemsize
+        header[key] = {"dtype": NAMES[out_dtype(t)], "shape": list(t.shape), "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little") + blob)
+        for t in tensors.values():
+            data = t.detach().to(out_dtype(t)).cpu().contiguous().reshape(-1)
+            f.write(memoryview(data.view(torch.uint8).numpy()))
+    return offset
 
 
 def load_safetensors(path: str) -> MmapSafetensors:

@@ -34,7 +34,12 @@ from image_editing_framework_torch.models.clip import (
     CLIPTextConfig,
     CLIPTextModel,
 )
-from image_editing_framework_torch.models.loader import load_params, load_safetensors, load_sharded_safetensors
+from image_editing_framework_torch.models.loader import (
+    load_params,
+    load_safetensors,
+    load_sharded_safetensors,
+    save_safetensors,
+)
 from image_editing_framework_torch.models.tokenizer import CLIPTokenizer
 from image_editing_framework_torch.models.unet import UNet2DCondition, UNetConfig
 from image_editing_framework_torch.models.vae import AutoencoderKL, VAEConfig
@@ -240,3 +245,37 @@ def load_refiner_pipeline(
         tokenizer_2=tok2,
         is_refiner=True,
     )
+
+
+# ---------------------------------------------------------------------------
+# the pipeline cache: a loaded pipeline's weights, restored without key mapping
+
+
+def _cache_modules(pipe):
+    modules = {"unet": pipe.unet, "vae": pipe.vae, "text": pipe.text_encoder}
+    if pipe.text_encoder_2 is not None:
+        modules["text2"] = pipe.text_encoder_2
+    return modules
+
+
+def save_pipeline_cache(pipe: SDPipeline, cache_dir: str) -> None:
+    """Persist a loaded pipeline's weights (JAX ``save_pipeline_cache``): one
+    ``.safetensors`` file of each module's state in its own dtype under
+    ``cache_dir`` (``unet``, ``vae``, ``text``, and ``text2`` when the pipe
+    has ``text_encoder_2``), so later loads skip the checkpoint's key
+    mapping and conversion."""
+    os.makedirs(cache_dir, exist_ok=True)
+    for name, module in _cache_modules(pipe).items():
+        save_safetensors(module.state_dict(), os.path.join(cache_dir, f"{name}.safetensors"))
+
+
+def restore_pipeline_cache(pipe: SDPipeline, cache_dir: str) -> SDPipeline:
+    """Restore the weights ``save_pipeline_cache`` wrote into ``pipe``'s
+    modules (each keeps its device and dtype); ``text2`` only where the
+    pipe has a second tower and the file exists."""
+    for name, module in _cache_modules(pipe).items():
+        path = os.path.join(cache_dir, f"{name}.safetensors")
+        if name == "text2" and not os.path.exists(path):
+            continue
+        load_params(module, load_safetensors(path), strict=True)
+    return pipe

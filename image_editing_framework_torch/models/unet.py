@@ -38,6 +38,13 @@ from image_editing_framework_torch.ops.attention import (
     split_heads,
 )
 from image_editing_framework_torch.ops.controls import NoneStep
+from image_editing_framework_torch.parallel.sharding import (
+    copy_to_tensor_parallel,
+    gather_heads,
+    refuse_ulysses_ring,
+    row_parallel_linear,
+    tensor_parallel_size,
+)
 
 Records = Dict[str, torch.Tensor]
 
@@ -109,13 +116,20 @@ class UNetConfig:
 
 
 class Attention(nn.Module):
-    """One attention layer (attn1 self / attn2 cross) with editing hooks."""
+    """One attention layer (attn1 self / attn2 cross) with editing hooks.
+
+    Under tensor parallelism (``tp_group``, set by
+    ``parallel/sharding.py shard_params``) it runs its H/n local heads: the
+    projections to_q / to_k / to_v are column-parallel, to_out.0
+    row-parallel, and a recorded cross-attention map is gathered over every
+    head before the control sees it."""
 
     def __init__(self, query_dim: int, heads: int, cross_dim: Optional[int], layer: int, place: str):
         super().__init__()
         self.heads, self.cross_dim, self.layer, self.place = heads, cross_dim, layer, place
         # context parallelism, set by UNet2DCondition.set_context_parallel
         self.cp_mesh, self.cp_min_seq, self.cp_mode = None, 4096, "ring"
+        self.tp_group = None
         src_dim = cross_dim if cross_dim is not None else query_dim
         self.to_q = nn.Linear(query_dim, query_dim, bias=False)
         self.to_k = nn.Linear(src_dim, query_dim, bias=False)
@@ -125,14 +139,18 @@ class Attention(nn.Module):
     def forward(self, x, context, ctrl, running=None):
         is_cross = self.cross_dim is not None
         site = AttnSite(layer=self.layer, place=self.place, seq_len=x.shape[1], is_cross=is_cross)
-        src = context if is_cross else x
-        q, k, v = (split_heads(f(t), self.heads) for f, t in ((self.to_q, x), (self.to_k, src), (self.to_v, src)))
+        tp = self.tp_group
+        x = copy_to_tensor_parallel(x, tp)
+        src = copy_to_tensor_parallel(context, tp) if is_cross else x
+        heads = self.heads // tensor_parallel_size(tp)
+        q, k, v = (split_heads(f(t), heads) for f, t in ((self.to_q, x), (self.to_k, src), (self.to_v, src)))
         records: Records = {}
         if is_cross:
+            # P2P's edits act head by head, on this rank's heads
             probs = ctrl.edit_cross(site, cross_attention_probs(q, k))
             rkey = ctrl.record_key(site)
             if rkey is not None:
-                records[rkey] = ctrl.record(site, probs)
+                records[rkey] = ctrl.record(site, gather_heads(probs, tp))
             out = apply_probs(probs, v)
         else:
             # A self-attention site of at least cp_min_seq tokens runs
@@ -143,7 +161,7 @@ class Attention(nn.Module):
             if out is None:
                 out = self_attention(q, k, v, ctrl.self_plan(site, x.shape[0], x.device), **cp)
         out = merge_heads(out).to(x.dtype)
-        return self.to_out[0](out), records
+        return row_parallel_linear(self.to_out[0], out, tp), records
 
 
 class GEGLU(nn.Module):
@@ -158,14 +176,19 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward (dim -> 4*dim gated -> dim); diffusers' ``net`` keys."""
+    """GEGLU feed-forward (dim -> 4*dim gated -> dim); diffusers' ``net`` keys.
+    Under tensor parallelism the GEGLU projection is column-parallel (each
+    rank holds hidden and gate columns of the same indices) and net.2
+    row-parallel."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.net = nn.ModuleList([GEGLU(dim, dim * 4), nn.Identity(), nn.Linear(dim * 4, dim)])
+        self.tp_group = None
 
     def forward(self, x):
-        return self.net[2](self.net[0](x))
+        tp = self.tp_group
+        return row_parallel_linear(self.net[2], self.net[0](copy_to_tensor_parallel(x, tp)), tp)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -298,7 +321,9 @@ class UNet2DCondition(nn.Module):
     activations stay replicated on every rank: at a CP site each rank takes
     its chunk of q, k, v and the bias, and the output is all-gathered
     (``parallel/ring_attention.py context_parallel_attention``). Every rank
-    runs the same forward with the same weights."""
+    runs the same forward with the same weights, or, under tensor
+    parallelism (``parallel/sharding.py shard_params``), its slice of the
+    attention and feed-forward weights."""
 
     def __init__(self, config: UNetConfig, cp_mesh=None, cp_min_seq: int = 4096, cp_mode: str = "ring"):
         super().__init__()
@@ -356,11 +381,22 @@ class UNet2DCondition(nn.Module):
 
         self.conv_norm_out = nn.GroupNorm(32, block0, eps=1e-5)
         self.conv_out = nn.Conv2d(block0, cfg.out_channels, 3, padding=1)
+        self.tp_mesh = None  # tensor parallelism's mesh, set by parallel/sharding.py shard_params
         self.set_context_parallel(cp_mesh, cp_min_seq, cp_mode)
+
+    @property
+    def lockstep_mesh(self):
+        """The mesh whose ranks must take the same host-side branches (NTI's
+        early stop): context parallelism's, else tensor parallelism's."""
+        return self.cp_mesh if self.cp_mesh is not None else self.tp_mesh
 
     def set_context_parallel(self, cp_mesh=None, cp_min_seq: int = 4096, cp_mode: str = "ring"):
         """Switch context parallelism on (a mesh) or off (None) for every
-        attention layer; a loaded pipeline's UNet takes it this way."""
+        attention layer; a loaded pipeline's UNet takes it this way. Under
+        tensor parallelism 'ulysses_ring' raises: it takes the 'tensor' axis
+        for heads."""
+        if self.tp_mesh is not None:
+            refuse_ulysses_ring(cp_mesh, cp_mode)
         self.cp_mesh, self.cp_min_seq, self.cp_mode = cp_mesh, cp_min_seq, cp_mode
         for module in self.modules():
             if isinstance(module, Attention):

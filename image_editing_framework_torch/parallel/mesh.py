@@ -2,8 +2,9 @@
 
 Counterpart of ``image_editing_framework_tpu/parallel/mesh.py``. The mesh has
 the JAX package's axes: "data" (data parallelism: the PIE-Bench sweep's
-shards, context parallelism's sequence split) and "tensor" (the head axis
-of 2D context parallelism). ``torch.distributed`` has no global device list:
+shards, the train step's batch, context parallelism's sequence split) and
+"tensor" (tensor parallelism's weight splits, the head axis of 2D context
+parallelism). ``torch.distributed`` has no global device list:
 one process drives one card (or, with ``device_type="cpu"``, one CPU rank),
 and the mesh spans the processes of the default group. The backend is the
 caller's choice: NCCL between cards, gloo on CPUs or several ranks on one
@@ -63,3 +64,11 @@ def data_sharding(mesh: DeviceMesh) -> Tuple:
 
 def replicated(mesh: DeviceMesh) -> Tuple:
     return (Replicate(),) * mesh.ndim
+
+
+def axis(mesh: DeviceMesh, name: str):
+    """(process group, this rank's index in it, its size) of the mesh axis
+    ``name``: "tensor" for tensor parallelism's splits and collectives,
+    "data" for context parallelism's and the batch's."""
+    group = mesh.get_group(name)
+    return group, dist.get_rank(group), dist.get_world_size(group)

@@ -61,6 +61,7 @@ import torch
 import torch.distributed as dist
 
 from image_editing_framework_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+from image_editing_framework_torch.parallel.mesh import axis as _axis
 
 Axis = Union[str, Tuple[str, str]]
 
@@ -76,12 +77,6 @@ def _host_staged(group) -> bool:
 def _send_form(x: torch.Tensor, group) -> torch.Tensor:
     """The tensor the transport takes: contiguous, in host memory on gloo."""
     return (x.cpu() if x.is_cuda and _host_staged(group) else x).contiguous()
-
-
-def _axis(mesh, name: str):
-    """(process group, this rank's index in it, its size) of a mesh axis."""
-    group = mesh.get_group(name)
-    return group, dist.get_rank(group), dist.get_world_size(group)
 
 
 def _rotate(tensors: Sequence[torch.Tensor], group) -> list:

@@ -25,7 +25,7 @@ import torch
 from image_editing_framework_torch import cli, sd_mapping
 from image_editing_framework_torch.models import configs, registry
 from image_editing_framework_torch.models.clip import TINY_CLIP, CLIPTextModel
-from image_editing_framework_torch.models.loader import load_params, load_safetensors
+from image_editing_framework_torch.models.loader import load_params, load_safetensors, save_safetensors
 from image_editing_framework_torch.models.unet import UNet2DCondition
 from image_editing_framework_torch.models.vae import TINY_VAE
 from image_editing_framework_torch.pipelines import _build, tiny_pipeline
@@ -58,7 +58,7 @@ def _tiny_sd_pipe():
 def test_load_params_on_the_card_equals_a_cpu_load_cast(smoke, tmp_path):
     pipe = _tiny_sd_pipe()
     path = str(tmp_path / "unet.safetensors")
-    smoke.write_safetensors(pipe.unet.state_dict(), path, torch.float16)
+    save_safetensors(pipe.unet.state_dict(), path, torch.float16)
     ckpt = load_safetensors(path)
 
     def meta_unet():

@@ -270,11 +270,14 @@ def test_probe_instances_read_the_ptxas_report():
 
 
 def test_checkpoint_writer_round_trips_through_safetensors(tmp_path):
-    """``write_safetensors`` (the GPU machine has no ``safetensors``) writes
-    files that ``safetensors`` reads back: every dtype the phase writes, the
-    fp16 cast of floating tensors, integers left as they are."""
+    """The checkpoint writers' ``save_safetensors`` (the GPU machine has no
+    ``safetensors``) writes files that ``safetensors`` reads back: every
+    dtype the phase writes, the fp16 cast of floating tensors, integers left
+    as they are."""
     from safetensors.numpy import load_file
     from safetensors.torch import load_file as torch_load_file
+
+    from image_editing_framework_torch.models.loader import save_safetensors
 
     smoke = _load_script()
     g = torch.Generator().manual_seed(0)
@@ -282,12 +285,12 @@ def test_checkpoint_writer_round_trips_through_safetensors(tmp_path):
                "i": torch.arange(6, dtype=torch.int64).reshape(1, 6), "s": torch.tensor(1.5),
                "t": torch.randn(4, 6, generator=g).T, **smoke.clip_position_ids()}
     path = str(tmp_path / "a.safetensors")
-    nbytes = smoke.write_safetensors(tensors, path)
+    nbytes = save_safetensors(tensors, path)
     got = torch_load_file(path)
     assert nbytes == sum(t.numel() * t.element_size() for t in tensors.values())
     assert set(got) == set(tensors) and all(torch.equal(got[k], v) for k, v in tensors.items())
     path16 = str(tmp_path / "b.safetensors")
-    smoke.write_safetensors({k: v for k, v in tensors.items() if k != "b"}, path16, torch.float16)
+    save_safetensors({k: v for k, v in tensors.items() if k != "b"}, path16, torch.float16)
     arrays = load_file(path16)
     np.testing.assert_array_equal(arrays["w"], tensors["w"].to(torch.float16).numpy())
     np.testing.assert_array_equal(arrays["t"], tensors["t"].to(torch.float16).numpy())
@@ -628,3 +631,42 @@ def test_ring_backward_variants_on_one_rank(tmp_path, home, global_lse):
             torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
     finally:
         dist.destroy_process_group()
+
+
+def test_chip_smoke_wires_the_tp_part():
+    """Part (d) runs in cp_path's group of 2 on a data 1 x tensor 2 mesh,
+    its first check on (b)'s SDXL module; the ranks' results are held to
+    each other and its launches join the kernels line under ``tp_path``;
+    the profiler check runs in the SD1.5 profile phase and the pipeline
+    cache in the checkpoint phase."""
+    import inspect
+
+    smoke = _load_script()
+    rank = inspect.getsource(smoke.cp_rank)
+    assert 'make_mesh(data=1, tensor=2, device_type="cuda")' in rank and "tp_parts(tp_mesh, device)" in rank
+    assert "tp_unet_forward(unet, tp_mesh, lat, 501, ctx, added, ref)" in inspect.getsource(smoke.cp_unet_forward)
+    assert "tp_line(two)" in inspect.getsource(smoke.phase_cp_path)
+    main = inspect.getsource(smoke.main)
+    assert main.count('"tp_path": tp_launches') == 2 and "tp_launches[i + 1]" in main
+    assert "profiling_check(" in inspect.getsource(smoke.phase_profile)
+    assert "pipeline_cache_round_trip(loaded" in inspect.getsource(smoke.phase_checkpoint_path)
+    assert (smoke.TP_RTOL, smoke.TP_ENCODE_RTOL, smoke.TP_TRAIN_BATCH, smoke.TP_GRAD_FLOOR) == (1e-3, 1e-4, 2, 1e-3)
+    assert smoke.TP_GRAD_FAULTS == ("copy", "dkv") and "tp_planted(fault)" in inspect.getsource(smoke.tp_train_step)
+
+
+def test_tp_part_rehearses_on_cpu_ranks(tmp_path):
+    """chip_smoke.py's tensor-parallel checks on two CPU ranks at tiny
+    size: they pass (the train step's gate rejecting its two planted
+    gradient faults on the way), the two ranks' results agree bitwise, and
+    with GEGLU's halves split together, or with the column-parallel layers'
+    input gradients left unreduced throughout, a check fails."""
+    from torch_cp_workers import launch
+
+    ranks = launch("tp_smoke", 2, tmp_path)
+    for res in ranks:
+        assert str(res["sound/error"]) == "", str(res["sound/error"])
+        assert np.all(res["sound/errors"] >= 0)
+        assert str(res["geglu_fault/error"]).startswith("tp "), str(res["geglu_fault/error"])
+        assert str(res["copy_fault/error"]).startswith("tp the train step's gradients"), str(res["copy_fault/error"])
+    for key in (k for k in ranks[0] if k.startswith("sound/") and k != "sound/errors"):
+        assert str(ranks[0][key]) == str(ranks[1][key]), key

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from image_editing_framework_torch.eval import lpips as tlpips
+from image_editing_framework_torch.models.loader import save_safetensors
 from image_editing_framework_tpu.eval import lpips as jlpips
 from torch_port_helpers import chip_smoke
 
@@ -70,7 +71,7 @@ def test_distances_match_jax(both, side, kind):
 def test_the_path_form_reads_one_safetensors_file(torch_files, both, tmp_path):
     vgg, lin = torch_files
     path = str(tmp_path / "lpips.safetensors")
-    chip_smoke().write_safetensors({k: torch.from_numpy(v) for k, v in {**vgg, **lin}.items()}, path)
+    save_safetensors({k: torch.from_numpy(v) for k, v in {**vgg, **lin}.items()}, path)
     from_path = tlpips.LPIPS(path, device="cpu")
     rng = np.random.RandomState(3)
     a, b = (rng.randint(0, 256, (1, 32, 32, 3)).astype(np.uint8) for _ in range(2))

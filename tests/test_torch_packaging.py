@@ -133,3 +133,17 @@ def test_the_port_imports_no_jax():
         assert not bad, (path, bad)
         assert "PIL" not in top, path
     assert "PIL" in _imported_roots(os.path.join(PKG, "utils", "images.py"))[0]
+
+
+def test_every_module_of_the_jax_package_has_its_port():
+    """Each module of the JAX package has a file of the same path in the
+    port, but three that need none: ``utils/jax_cache.py`` (JAX's
+    compilation cache), ``models/init_utils.py`` (Flax initialisers) and
+    ``native/__init__.py`` (its reader is ``models/loader.py``'s)."""
+    jax_pkg = os.path.join(ROOT, "image_editing_framework_tpu")
+    modules = {os.path.relpath(os.path.join(d, n), jax_pkg) for d, _, names in os.walk(jax_pkg) for n in names
+               if n.endswith(".py")}
+    missing = sorted(m for m in modules if not os.path.exists(os.path.join(PKG, m)))
+    assert missing == ["models/init_utils.py", "native/__init__.py", "utils/jax_cache.py"]
+    for name in ("parallel/sharding.py", "utils/profiling.py"):
+        assert os.path.exists(os.path.join(PKG, name)), name

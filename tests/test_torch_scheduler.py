@@ -43,3 +43,10 @@ def test_reverse_step_inverts_step():
         up = tsch.ddim_reverse_step(p, eps, i, x)
         back = tsch.ddim_step(p, eps, p.num_steps - 1 - i, up)
         np.testing.assert_allclose(n(back), n(x), atol=1e-5, rtol=0)
+
+
+def test_scale_model_input_is_jaxs_identity():
+    x = np.random.RandomState(1).randn(2, 8, 8, 4).astype(np.float32)
+    ref = jsch.scale_model_input(jnp.asarray(x), jnp.asarray(10))
+    out = tsch.scale_model_input(t(x), 10)
+    np.testing.assert_array_equal(n(out), np.asarray(ref))

@@ -5,7 +5,8 @@ gloo group on a ``file://`` store under the test's temporary directory, a
 60 s collective timeout, and a join timeout after which every rank is
 killed. The ranks run every case of their suite on inputs made from a seed
 with numpy (``ring_inputs``, which the tests call too) and write this
-rank's results to ``<out>/<suite>_<rank>.npz``. This module imports neither
+rank's results to ``<out>/<suite>_<rank>.npz``. The tensor-parallel
+suites (``tp_*``) live in ``torch_tp_workers.py``. This module imports neither
 JAX nor a test module, so a rank process imports no JAX.
 
     python tests/torch_cp_workers.py SUITE RANK WORLD STORE OUT [IN]
@@ -253,7 +254,11 @@ def main(argv):
     got = mesh_lib.initialize_distributed(f"file://{store}", world, rank, backend="gloo",
                                           timeout=datetime.timedelta(seconds=60))
     try:
-        if suite == "mesh":
+        if suite.startswith("tp_"):
+            import torch_tp_workers
+
+            res = torch_tp_workers.run(suite, rank, in_dir)
+        elif suite == "mesh":
             res = suite_mesh()
         elif suite == "ring":
             mesh2d = mesh_lib.make_mesh(data=2, tensor=2, device_type="cpu") if world == 4 else None
