@@ -10,7 +10,9 @@ Phases, one line of output each (any failure exits non-zero):
      report (a bf16 instantiation that spills, or a count of them other than
      the source's, fails the phase);
   2. kernels: each kernel against its plain PyTorch version on the card at
-     its paths' shapes (SD1.5's and SDXL's), as the head-split views the
+     its paths' shapes (SD1.5's, SDXL's and SD2.1's 768² sites: 9216, 2304,
+     576 and 144 tokens, the last two part-filling the last key tile), as
+     the head-split views the
      UNet passes (bf16 and f32), and at edge cases (padded Nk, Nq off the tile, NEG_INF bias
      segments, fully masked rows, lse), and at MasaCtrl's biased shapes
      (``BIAS_SHAPES``: the union plan's two K/V segments, the mask
@@ -74,7 +76,8 @@ Phases, one line of output each (any failure exits non-zero):
      the same snapshot with a seeded random CLIP checkpoint and LPIPS file:
      all four methods on the synthesized source image, 50 steps, its
      report's hashes, metrics and exact launches, the CLIP and LPIPS towers
-     on the card against the same towers on the CPU, then P2P again;
+     on the card against the same towers on the CPU, then P2P again through
+     the port's ``tools/golden_check.py`` against the runway's report;
   5. nti path: the same model and edit through null-text inversion
      (``cli.invert(..., "null-text")``, 50 steps of ``SD_INNER_STEPS`` (2)
      Adam iterations, each a UNet forward and backward), the edit taking the
@@ -107,8 +110,16 @@ Phases, one line of output each (any failure exits non-zero):
      UNet; p2z with the references recomputed from pass 1's trajectory and
      the checkpointed UNet, the XL defaults, both of its edits over every
      5th step), decode full-frame and tiled;
-  10. refiner: img2img through the SDXL refiner at 1024², strength 0.3;
-  11. cp path: context parallelism (``parallel/ring_attention.py``) on
+  10. sd21 path: SD2.1 at full width from a converted single file: the
+     weights of ``random_pipeline("2.1")`` written as an fp16 LDM single
+     file (OpenCLIP-H with a 24th resblock, as real SD2.x files carry),
+     converted by the port's ``tools/convert_checkpoint.py --family sd21``
+     in a subprocess, loaded by ``cli.load_pipe("2.1")`` (bitwise the fp16
+     values written), then the main path at 768² through ``cli.invert`` and
+     ``cli.run_method("p2p")`` (800 + 800 launches), and the NTI path on
+     the loaded pipe cut as SDXL's (10 steps, 1 inner iteration a step);
+  11. refiner: img2img through the SDXL refiner at 1024², strength 0.3;
+  12. cp path: context parallelism (``parallel/ring_attention.py``) on
      rank processes of their own, a group of 4 and then one of 2, over
      gloo on one card (NCCL with a card per rank where there are enough):
      (a) the ring, Ulysses and 2D attention at SDXL's and SD1.5's
@@ -119,7 +130,8 @@ Phases, one line of output each (any failure exits non-zero):
      planted faults rejected, launches per rank exact, times per site;
      (b) one SDXL 1024² CFG-4 UNet forward in f32 with the ring and with
      Ulysses against the same forward without CP (weights equal across
-     ranks by checksum); (c) the SDXL main path under the ring (DDIM
+     ranks by checksum); (c) the SDXL main path under the ring on the
+     10-step schedule of ``xl_nti_path`` (DDIM
      inversion, P2P replace edit, decode through ``cli.invert`` /
      ``cli.run_method``, 80 launches per UNet forward), its images equal
      on both ranks; (d) tensor parallelism (``parallel/sharding.py``) on a
@@ -157,11 +169,16 @@ STEPS = 50
 PATH_SHAPES = {
     "sd": [(4096, 40, 8, 5), (1024, 80, 8, 5), (256, 160, 8, 5), (64, 160, 8, 1)],  # SD1.5 at 512²
     "xl": [(4096, 64, 10, 10), (1024, 64, 20, 60)],  # SDXL at 1024²
+    # SD2.1 at 768²: 576 = 4.5 x 128 and 144 = 128 + 16 tokens leave the
+    # forward's last query block and key tile part filled (and 144 is off
+    # the backward's 64-row tiles); no 256-token site
+    "sd21": [(9216, 64, 5, 5), (2304, 64, 10, 5), (576, 64, 20, 5), (144, 64, 20, 1)],
 }
 # the sites NTI's gradient flows through (the first site sees no embedding)
 GRAD_SHAPES = {
     "sd": [(4096, 40, 8, 4), (1024, 80, 8, 5), (256, 160, 8, 5), (64, 160, 8, 1)],
     "xl": [(4096, 64, 10, 9), (1024, 64, 20, 60)],
+    "sd21": [(9216, 64, 5, 4), (2304, 64, 10, 5), (576, 64, 20, 5), (144, 64, 20, 1)],
 }
 # MasaCtrl's biased forward calls per CFG-4 UNet forward at its gated sites
 # (SD1.5 layers 10-15, SDXL 54-69): (variant, tokens, keys, head dim, heads,
@@ -763,6 +780,8 @@ def phase_bwd_kernels(gen):
             for n, d, h, sites in shapes:
                 check(dtype, 1, h, n, n, d, timed=model == "sd" or dtype == torch.bfloat16, sites=sites, model=model)
         for model, shapes in PATH_SHAPES.items():  # f32 is off p2z's path: checked, not timed
+            if model not in MODELS:
+                continue  # the script runs p2z on SD1.5 and SDXL only
             for n, d, h, sites in shapes:
                 check(dtype, P2Z_BATCH, h, n, n, d, timed=dtype == torch.bfloat16, sites=sites, model=model,
                       into=p2z_sums)
@@ -1192,6 +1211,9 @@ def reset_launch_counts():
 
 # per model: (sd_version, name, image side, context width)
 MODELS = {"sd": ("1.5", "SD1.5", 512, 768), "xl": ("xl", "SDXL base", 1024, 2048)}
+# SD2.1 at the registry's 768², which sd21_path runs from a converted single file
+FAMILIES = dict(MODELS, sd21=("2.1", "SD2.1", 768, 1024))
+PREFIX = {"sd": "", "xl": "xl_", "sd21": "sd21_"}  # of each model's phase tags
 PROMPTS = ["a photo of a cat sitting on the grass", "a photo of a dog sitting on the grass"]
 
 
@@ -1396,6 +1418,22 @@ def to_ldm_single_file_xl(pipe):
             **to_ldm_vae(pipe.vae.state_dict(), pipe.vae.config),
             **{f"conditioner.embedders.0.transformer.{k}": v for k, v in text.items()},
             **to_open_clip(pipe.text_encoder_2.state_dict(), "conditioner.embedders.1.model.")}
+
+
+def to_ldm_single_file_21(pipe):
+    """An SD2.x pipeline's weights under the LDM single-file keys: UNet,
+    VAE, and the OpenCLIP-H tower in OpenCLIP's layout as
+    ``cond_stage_model.model.*`` with the 24th resblock a real SD2.x file
+    carries (``OPEN_CLIP_VIT_H`` runs 23; the loader ignores the 24th): here
+    a copy of the 23rd's tensors."""
+    text = dict(pipe.text_encoder.state_dict())
+    last = pipe.text_encoder.config.num_layers - 1
+    prefix = f"text_model.encoder.layers.{last}."
+    text.update({f"text_model.encoder.layers.{last + 1}.{k[len(prefix):]}": v for k, v in list(text.items())
+                 if k.startswith(prefix)})
+    return {**to_ldm_unet(pipe.unet.state_dict(), pipe.unet.config),
+            **to_ldm_vae(pipe.vae.state_dict(), pipe.vae.config),
+            **to_open_clip(text, "cond_stage_model.model.")}
 
 
 def clip_position_ids():
@@ -2113,13 +2151,15 @@ def phase_validation_path(root, snapshot):
     ``TOWER_RTOL`` of the same towers on the CPU on the same images
     (relative; the embeddings' distance); LPIPS(a, a) == 0 and LPIPS(a, b)
     > 0 on the card. Readings: seconds per method and flow, the towers' ms
-    on the card, and whether a second ``--methods p2p`` run gives the same
-    hashes."""
+    on the card, and whether P2P run again by the golden check
+    (``tools/golden_check.py --path`` the snapshot, against this run's
+    report) gives the same hashes."""
     import os
 
     from image_editing_framework_torch.eval import validate
     from image_editing_framework_torch.eval.lpips import LPIPS
     from image_editing_framework_torch.eval.metrics import CLIPScore
+    from image_editing_framework_torch.tools import golden_check
     from image_editing_framework_torch.utils.images import decode_png
 
     side, sites = MODELS["sd"][2], SITES["sd"]
@@ -2199,12 +2239,25 @@ def phase_validation_path(root, snapshot):
     del card_clip, card_lpips
     torch.cuda.empty_cache()
 
-    # a second run of P2P alone: do its hashes repeat the first run's? (a reading)
+    # P2P again through the golden check (tools/golden_check.py) against
+    # this run's report: do its hashes repeat the first run's? (a reading:
+    # exit 0 or 1; a refusal or an exception fails the phase)
     out2 = os.path.join(root, "validation_p2p")
-    report2, rerun_counts, rerun_s, _ = runway(out2, "--methods", "p2p")
+    reset_launch_counts()
+    golden, rerun_s = timed(lambda: golden_check.main(
+        ["--report", os.path.join(out, "1.5", "report.json"), "--method", "p2p", "--path", snapshot, "--out", out2,
+         "--source_prompt", source, "--target_prompt", target]))
+    rerun_counts = launch_counts()
+    torch.cuda.empty_cache()
+    if golden not in (0, 1):
+        raise AssertionError(f"the golden check refused the runway's report (exit {golden})")
     if rerun_counts != validation_launches(sites, STEPS, ("p2p",), real=True):
         raise AssertionError(f"the P2P rerun launched (forward, dQ, dK/dV) {rerun_counts} times")
+    with open(os.path.join(out2, "report.json")) as f:
+        report2 = json.load(f)
     rerun_same = {k: report2["methods"]["p2p"][k] == report["methods"]["p2p"][k] for k in hashes}
+    if (golden == 0) != all(rerun_same.values()):
+        raise AssertionError(f"the golden check exited {golden} on hashes {rerun_same}")
     emit("validation_path", model="SD1.5 (random weights, seed 0, from the fp16 snapshot, bf16)", resolution=side,
          dtype="bfloat16", steps=STEPS, methods=list(methods), write_s=write_s, clip_gb=clip_bytes / 1e9,
          lpips_mb=lpips_bytes / 1e6, run_s=run_s, load_s=load_s,
@@ -2215,7 +2268,7 @@ def phase_validation_path(root, snapshot):
          lpips_same=same, lpips_apart=apart, tower_ms=tower_ms,
          recon={m: {k: e[k] for k in ("recon_mse", "recon_psnr", "recon_ssim", "recon_lpips")}
                 for m, e in report["methods"].items()},
-         rerun_s=rerun_s, rerun_launches=rerun_counts, rerun_same_hashes=rerun_same,
+         rerun_s=rerun_s, rerun_launches=rerun_counts, rerun_same_hashes=rerun_same, rerun_golden_check_exit=golden,
          main_path_image_s=EMITTED["main_path"]["image_s"], card=card_line())
     return counts, rerun_counts
 
@@ -2340,6 +2393,101 @@ def phase_xl_checkpoint_path(pipe):
     return counts[0] + refine_counts[0]
 
 
+SD21_DISK_GIB = 8  # the SD2.1 single file and its converted snapshot (2.6 GB each, fp16)
+
+
+def phase_sd21_path(root):
+    """SD2.1 on the card from a converted single file, bf16, 768²: the
+    weights of ``random_pipeline("2.1", seed=0)`` written as an fp16 LDM
+    single file (``to_ldm_single_file_21``: UNet, VAE, OpenCLIP-H under
+    ``cond_stage_model.model.`` with a 24th resblock), converted by the
+    port's ``tools/convert_checkpoint.py --family sd21`` in a subprocess,
+    the tokenizer written beside it, then loaded by ``cli.load_pipe("2.1")``
+    through ``sd_mapping.sd_maps`` (every tensor bitwise the written fp16
+    value); then the main path through the user's calls on the loaded pipe:
+    ``cli.invert`` (DDIM, batch 1) and ``cli.run_method("p2p")`` (replace,
+    CFG batch 4, LocalBlend's words given: at 768² no 256-token site exists,
+    so it idles, as in JAX), with exact launches: 16 a UNet forward, 800 +
+    800. Returns (launches, the CFG-4 UNet ms, the loaded pipe)."""
+    import os
+
+    from image_editing_framework_torch import cli, sd_mapping
+    from image_editing_framework_torch.core.config import P2PConfig, SamplerConfig
+    from image_editing_framework_torch.methods import common
+    from image_editing_framework_torch.pipelines import random_pipeline
+
+    version, name, side, _ = FAMILIES["sd21"]
+    sites = SITES["sd21"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    pipe, setup_s = timed(lambda: random_pipeline(version, num_steps=STEPS, dtype=torch.bfloat16, seed=0,
+                                                  device="cuda"))
+    vocab, merges = synthetic_clip_vocab(CKPT_WORDS + " ".join(PROMPTS).split())
+    saved = dict(sd_mapping.sd_maps)
+    with tempfile.TemporaryDirectory(prefix="ief_sd21_", dir=root) as tmp:
+        (single, single_bytes), write_s = timed(lambda: write_single_file(
+            to_ldm_single_file_21(pipe), os.path.join(tmp, "single"), vocab, merges))
+        snapshot = os.path.join(tmp, "converted")
+        t0 = time.perf_counter()
+        tool = subprocess.run([sys.executable, "-m", "image_editing_framework_torch.tools.convert_checkpoint",
+                               single, snapshot, "--family", "sd21"], cwd=here, capture_output=True, text=True)
+        convert_s = time.perf_counter() - t0
+        if tool.returncode != 0:
+            raise AssertionError(f"convert_checkpoint exited {tool.returncode}:\n{tool.stdout[-2000:]}"
+                                 f"{tool.stderr[-4000:]}")
+        write_tokenizer(os.path.join(snapshot, "tokenizer"), vocab, merges)
+        try:
+            sd_mapping.sd_maps[version] = snapshot
+            loaded, load = measured_load(lambda: cli.load_pipe(version))
+        finally:
+            sd_mapping.sd_maps.clear()
+            sd_mapping.sd_maps.update(saved)
+    unequal = [k for part in ("unet", "vae", "text_encoder")
+               for k in unequal_tensors(part, getattr(loaded, part), getattr(loaded, part), getattr(pipe, part))]
+    if unequal:
+        raise AssertionError(f"{len(unequal)} tensors of the converted SD2.1 load differ from the weights written "
+                             f"through fp16: {unequal[:5]}")
+    layers = len(loaded.text_encoder.text_model.encoder.layers)
+    unet_params = sum(p.numel() for p in loaded.unet.parameters())
+    del pipe
+    torch.cuda.empty_cache()
+
+    image = (np.random.RandomState(0).rand(side, side, 3) * 255).astype(np.uint8)
+    cfg = P2PConfig(edit_type="replace", blend_words=(("cat",), ("dog",)))
+    sampler = SamplerConfig(num_inference_steps=STEPS, height=side, width=side)
+    ctx, _ = common.prepare_conditioning(loaded, PROMPTS, side, side)
+    lat4 = torch.randn(4, side // 8, side // 8, 4, device="cuda", dtype=torch.bfloat16)
+    unet_ms = cuda_ms(lambda: loaded.unet_apply(lat4, 501, ctx), min_ms=500.0)
+    unet_b1_ms = cuda_ms(lambda: loaded.unet_apply(lat4[:1], 501, ctx[2:3]), min_ms=500.0)
+    del lat4, ctx
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    (last, traj, _), invert_s = timed(lambda: cli.invert(loaded, image, PROMPTS[0], "ddim", "p2p"))
+    inv_counts = launch_counts()
+    images, edit_s = timed(lambda: np.stack(cli.run_method("p2p", loaded, PROMPTS, last, sampler,
+                                                           method_kwargs={"config": cfg})))
+    counts = launch_counts()
+    if inv_counts != (sites * STEPS, 0, 0) or counts != (2 * sites * STEPS, 0, 0):
+        raise AssertionError(f"the SD2.1 main path launched (forward, dQ, dK/dV) {inv_counts} in the inversion and "
+                             f"{counts} in all, expected {sites} a UNet forward")
+    if images.shape != (2, side, side, 3) or images.dtype != np.uint8 or any(img.std() == 0 for img in images):
+        raise AssertionError(f"SD2.1 edit output {images.shape} {images.dtype} constant or misshapen")
+    if not (torch.isfinite(traj.float()).all() and torch.isfinite(last.float()).all()):
+        raise AssertionError("the SD2.1 inversion produced non-finite latents")
+    emit("sd21_path", model=f"{name} (random weights, seed 0, written as an fp16 single file, converted, loaded "
+                            f"bf16)", resolution=side, dtype="bfloat16", steps=STEPS, unet_params=unet_params,
+         text_layers=layers, setup_s=setup_s, write_s=write_s, single_file_gb=single_bytes / 1e9,
+         convert_s=convert_s, convert_output=tool.stdout.strip().splitlines(), load_s=load["s"], load_gb=load["gb"],
+         load_gb_per_s=load["gb_per_s"], load_components=load["components"],
+         host_peak_rss_gib=load["host_peak_rss_gib"], device_load_peak_gib=load["device_load_peak_gib"],
+         loads_bitwise_equal=True, invert_s=invert_s, edit_and_decode_s=edit_s, image_s=invert_s + edit_s,
+         unet_forward_cfg4_ms=unet_ms, unet_forward_b1_ms=unet_b1_ms, flash_launches=counts[0],
+         inversion_launches=inv_counts[0], flash_launches_per_forward=sites, bwd_launches=counts[1:],
+         peak_gib=torch.cuda.max_memory_allocated() / 2**30, image_means=[float(img.mean()) for img in images],
+         card=card_line())
+    return counts[0], unet_ms, loaded
+
+
 def phase_nti_path(model, pipe):
     """The same edit through null-text inversion, the reference's default:
     ``cli.invert(..., "null-text", "p2p")`` (DDIM inversion, then 50 steps of
@@ -2352,19 +2500,20 @@ def phase_nti_path(model, pipe):
     of every XL_NTI_STRIDE-th step (the pipe's schedule swapped for the
     run): with random weights the early stop never fires, and 500
     iterations of a 2.6B-parameter forward, recomputation and backward
-    would take minutes."""
+    would take minutes. SD2.1 (``sd21_path``'s loaded pipe, 768²) is cut as
+    SDXL is, on the plain UNet (the checkpointed one is XL's at 1024²)."""
     from image_editing_framework_torch import cli
     from image_editing_framework_torch.core.config import NTIConfig, P2PConfig, SamplerConfig
     from image_editing_framework_torch.core.scheduler import make_ddim_schedule
     from image_editing_framework_torch.inversion import nti
     from image_editing_framework_torch.methods.p2p import p2p_edit
 
-    _, name, side, width = MODELS[model]
+    _, name, side, width = FAMILIES[model]
     image = (np.random.RandomState(1).rand(side, side, 3) * 255).astype(np.uint8)
     cfg = P2PConfig(edit_type="replace", blend_words=(("cat",), ("dog",)))
-    steps = STEPS // XL_NTI_STRIDE if model == "xl" else STEPS
+    steps = STEPS if model == "sd" else STEPS // XL_NTI_STRIDE
     sampler = SamplerConfig(num_inference_steps=steps, height=side, width=side)
-    inner_steps = XL_INNER_STEPS if model == "xl" else SD_INNER_STEPS
+    inner_steps = SD_INNER_STEPS if model == "sd" else XL_INNER_STEPS
 
     # the NTI call's own seconds and launch counts, read around it
     marks = {}
@@ -2413,7 +2562,7 @@ def phase_nti_path(model, pipe):
         raise AssertionError(f"NTI embeddings {tuple(uncond_seq.shape)} not finite or misshapen")
     if images.shape != (2, side, side, 3) or images.dtype != np.uint8 or images.std() == 0:
         raise AssertionError(f"edit output {images.shape} {images.dtype} constant or misshapen")
-    emit("nti_path" if model == "sd" else "xl_nti_path", model=f"{name} (random weights, seed 0)", resolution=side,
+    emit(PREFIX[model] + "nti_path", model=f"{name} (random weights, seed 0)", resolution=side,
          dtype="bfloat16", steps=steps, num_inner_steps=inner_steps, base_lr=marks["config"].base_lr,
          lr_decay_span=marks["config"].lr_decay_span, checkpointed_unet=model == "xl",
          invert_s=invert_s - marks["nti_s"], nti_s=marks["nti_s"], edit_and_decode_s=edit_s,
@@ -3015,9 +3164,12 @@ def cp_unet_forward(mesh, device, tp_mesh=None):
 
 
 def cp_main_path(mesh, device):
-    """(c): the SDXL 1024² main path under the ring, bf16, 50 steps: DDIM
-    inversion through ``cli.invert``, the P2P replace edit at CFG batch 4
-    and the decode through ``cli.run_method``; exact launches."""
+    """(c): the SDXL 1024² main path under the ring, bf16, on
+    ``xl_nti_path``'s 10-step schedule (every ``XL_NTI_STRIDE``-th step of
+    50: its gates, launches per forward, finiteness and equal images on both
+    ranks, keep their meaning at any depth): DDIM inversion through
+    ``cli.invert``, the P2P replace edit at CFG batch 4 and the decode
+    through ``cli.run_method``; exact launches."""
     import hashlib
 
     from image_editing_framework_torch import cli
@@ -3026,12 +3178,13 @@ def cp_main_path(mesh, device):
 
     world = torch.distributed.get_world_size(mesh.get_group("data"))
     side = MODELS["xl"][2]
-    (pipe, setup_s) = timed(lambda: random_pipeline("xl", num_steps=STEPS, dtype=torch.bfloat16, seed=0,
+    steps = STEPS // XL_NTI_STRIDE
+    (pipe, setup_s) = timed(lambda: random_pipeline("xl", num_steps=steps, dtype=torch.bfloat16, seed=0,
                                                     device=device))
     pipe.unet.set_context_parallel(mesh, CP_MIN_SEQ, "ring")
     image = (np.random.RandomState(0).rand(side, side, 3) * 255).astype(np.uint8)
     cfg = P2PConfig(edit_type="replace", blend_words=(("cat",), ("dog",)))
-    sampler = SamplerConfig(num_inference_steps=STEPS, height=side, width=side)
+    sampler = SamplerConfig(num_inference_steps=steps, height=side, width=side)
     reset_launch_counts()
     (last, traj, _), invert_s = timed(lambda: cli.invert(pipe, image, PROMPTS[0], "ddim", "p2p"))
     inv_counts = launch_counts()
@@ -3039,7 +3192,8 @@ def cp_main_path(mesh, device):
                                                   method_kwargs={"config": cfg}))
     counts = launch_counts()
     per_forward = SITES["xl"] - CP_BIG_SITES + CP_BIG_SITES * world
-    if inv_counts != (per_forward * STEPS, 0, 0) or counts != (2 * per_forward * STEPS, 0, 0):
+    per_pass = per_forward * STEPS // XL_NTI_STRIDE
+    if inv_counts != (per_pass, 0, 0) or counts != (2 * per_pass, 0, 0):
         raise AssertionError(f"the main path under the ring launched (forward, dQ, dK/dV) {inv_counts} in the "
                              f"inversion and {counts} in all, expected {per_forward} per UNet forward")
     for img in images:
@@ -3047,7 +3201,7 @@ def cp_main_path(mesh, device):
             raise AssertionError(f"the main path under the ring gave a constant or misshapen image {img.shape}")
     if not torch.isfinite(traj.float()).all():
         raise AssertionError("the inversion under the ring gave non-finite latents")
-    return dict(setup_s=setup_s, invert_s=invert_s, edit_and_decode_s=edit_s, image_s=invert_s + edit_s,
+    return dict(steps=steps, setup_s=setup_s, invert_s=invert_s, edit_and_decode_s=edit_s, image_s=invert_s + edit_s,
                 launches=counts[0], inversion_launches=inv_counts[0], launches_per_unet_forward=per_forward,
                 image_sha256=[hashlib.sha256(img.tobytes()).hexdigest() for img in images],
                 image_means=[float(img.mean()) for img in images], peak_gib=torch.cuda.max_memory_allocated() / 2**30)
@@ -3429,8 +3583,8 @@ def phase_cp_path():
          world=2, backend=two[0]["backend"], **{k: v for k, v in two[0]["unet"].items()},
          rank1={k: two[1]["unet"][k] for k in ("ring", "ulysses")}, seconds=two[0]["unet_s"], card=card_line())
     main = two[0]["main"]
-    emit("cp_main_path", model="SDXL base (random weights, seed 0)", resolution=1024, dtype="bfloat16", steps=STEPS,
-         world=2, backend=two[0]["backend"], mode="ring", **main, rank1_image_s=two[1]["main"]["image_s"],
+    emit("cp_main_path", model="SDXL base (random weights, seed 0)", resolution=1024, dtype="bfloat16", world=2,
+         backend=two[0]["backend"], mode="ring", **main, rank1_image_s=two[1]["main"]["image_s"],
          images_equal_across_ranks=True, xl_main_path_image_s=EMITTED.get("xl_main_path", {}).get("image_s"),
          note="one card: both ranks share it and gloo copies every rotation through host memory; these seconds "
               "say nothing about scaling over several cards", card=card_line())
@@ -3505,6 +3659,12 @@ def main() -> int:
         launches[prefix + "p2z"] = p2z_inversion[0] + sum(counts[0] for counts in p2z_runs[model].values())
         del profile_args, nti, inversion  # the next model needs the card's memory
         torch.cuda.empty_cache()
+    launches["sd21"], unet_ms["sd21"], pipe21 = run("sd21_path", phase_sd21_path,
+                                                    scratch_base(SD21_DISK_GIB, "sd21_disk"))
+    sd21_nti, _ = run("sd21_nti_path", phase_nti_path, "sd21", pipe21)
+    launches["sd21_nti"], bwd_launches["sd21"] = sd21_nti[0], sd21_nti[1:]
+    del pipe21
+    torch.cuda.empty_cache()
     launches["refiner"] = run("refiner", phase_refiner)
     launches["cp"], cp_bwd, tp_launches = run("cp_path", phase_cp_path)
     emit("seconds", **seconds)
@@ -3522,6 +3682,14 @@ def main() -> int:
              bwd_device_ms_per_p2z_guided_step=p2z_bwd_sums[model]["all"]["device_ms"],
              bwd_bound_ms_per_p2z_guided_step=p2z_bwd_sums[model]["all"]["bound_ms"],
              sdpa_bwd_device_ms_per_p2z_guided_step=p2z_bwd_sums[model]["all"]["library_device_ms"])
+    fwd, bwd = sums["sd21"], bwd_sums["sd21"]["all"]
+    emit("share", model="sd21", flash_ms_per_cfg4_forward=fwd["ms"], unet_forward_cfg4_ms=unet_ms["sd21"],
+         flash_share=fwd["ms"] / unet_ms["sd21"], flash_bound_ms_per_cfg4_forward=fwd["bound_ms"],
+         flash_plain_ms_per_cfg4_forward=fwd["plain_ms"], sdpa_ms_per_cfg4_forward=fwd["library_ms"],
+         bwd_ms_per_inner_iteration=bwd["ms"], bwd_bound_ms_per_inner_iteration=bwd["bound_ms"],
+         bwd_bound_by=bwd["bound_by"], sdpa_bwd_ms_per_inner_iteration=bwd["library_ms"],
+         bwd_device_ms_per_inner_iteration=bwd["device_ms"],
+         sdpa_bwd_device_ms_per_inner_iteration=bwd["library_device_ms"])
 
     def at(part, *more):
         return {key: part[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms") + more}
@@ -3531,7 +3699,8 @@ def main() -> int:
     tpu = "image_editing_framework_tpu/ops/flash_attention.py"
     work = {"sd": "the 15 self-attention sites an SD1.5 512² NTI gradient flows through, batch 1, bf16 (one inner "
                   "iteration)",
-            "xl": "the 69 sites an SDXL 1024² NTI gradient flows through, batch 1, bf16 (one inner iteration)"}
+            "xl": "the 69 sites an SDXL 1024² NTI gradient flows through, batch 1, bf16 (one inner iteration)",
+            "sd21": "the 15 sites an SD2.1 768² NTI gradient flows through, batch 1, bf16 (one inner iteration)"}
     p2z_work = {"sd": "all 16 self-attention sites of SD1.5 512², CFG batch 2, bf16 (one p2z guided step)",
                 "xl": "all 70 sites of SDXL 1024², CFG batch 2, bf16 (one p2z guided step)"}
     bwd = [{
@@ -3541,6 +3710,7 @@ def main() -> int:
         + sum(counts[i + 1] for runs in p2z_runs.values() for counts in runs.values())
         + sum(counts[i + 1] for counts in validation) + cp_bwd[i] + tp_launches[i + 1],
         "launches_by_path": {"nti_path": bwd_launches["sd"][i], "xl_nti_path": bwd_launches["xl"][i],
+                             "sd21_nti_path": bwd_launches["sd21"][i],
                              "masactrl_path": 0, "xl_masactrl_path": 0, "pnp_path": 0, "xl_pnp_path": 0,
                              "p2z_path": sum(counts[i + 1] for counts in p2z_runs["sd"].values()),
                              "xl_p2z_path": sum(counts[i + 1] for counts in p2z_runs["xl"].values()),
@@ -3552,6 +3722,7 @@ def main() -> int:
         "max_abs_err": bwd_worst[torch.bfloat16][kernel], "max_abs_err_f32": bwd_worst[torch.float32][kernel],
         **at(bwd_sums["sd"][kernel], *device), "work": work["sd"],
         "at_xl": dict(at(bwd_sums["xl"][kernel], *device), work=work["xl"]),
+        "at_sd21": dict(at(bwd_sums["sd21"][kernel], *device), work=work["sd21"]),
         "at_p2z": {model: dict(at(p2z_bwd_sums[model][kernel], *device), work=p2z_work[model],
                                whole_backward=at(p2z_bwd_sums[model]["all"], *device))
                    for model in MODELS},
@@ -3587,6 +3758,7 @@ def main() -> int:
                              "masactrl_path": launches["masactrl"], "xl_masactrl_path": launches["xl_masactrl"],
                              "pnp_path": launches["pnp"], "xl_pnp_path": launches["xl_pnp"],
                              "p2z_path": launches["p2z"], "xl_p2z_path": launches["xl_p2z"],
+                             "sd21_path": launches["sd21"], "sd21_nti_path": launches["sd21_nti"],
                              "refiner": launches["refiner"], "cp_path": launches["cp"], "tp_path": tp_launches[0]},
         "cp_path_launches": "rank 0's: the SDXL 1024² main path under the ring on 2 ranks (80 per UNet forward)",
         "tp_path_launches": "rank 0's under tensor parallelism on 2 ranks: the f32 SDXL 1024² UNet forward (70), "
@@ -3597,6 +3769,8 @@ def main() -> int:
         "max_abs_err": worst[torch.bfloat16], "max_abs_err_f32": worst[torch.float32],
         **at(sums["sd"]), "work": "the 16 self-attention sites of one SD1.5 512² UNet forward at CFG batch 4, bf16",
         "at_xl": dict(at(sums["xl"]), work="the 70 sites of one SDXL 1024² UNet forward at CFG batch 4, bf16"),
+        "at_sd21": dict(at(sums["sd21"]), work="the 16 self-attention sites of one SD2.1 768² UNet forward at CFG "
+                                               "batch 4 (9216/2304/576/144 tokens, d = 64), bf16"),
         "design": "bf16: wgmma (S = Q·Kᵀ SS, O += P·V RS with P from registers, V MN-major), K/V tiles by TMA "
                   "over rank-4 (D, N, H, B) tensor maps into a 2-stage ring on mbarriers, one producer warp, two "
                   "consumer warpgroups of 64 queries (128 per block; one, 64 queries, at d = 160), setmaxnreg "

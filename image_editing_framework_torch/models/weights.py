@@ -41,9 +41,13 @@ def random_init_(module: nn.Module, seed: int, scale: float = 0.02) -> nn.Module
 
     Norm scales (LayerNorm / GroupNorm weights) are centred at 1 instead of
     0, so the network stays live: N(0, 0.02) scales would shrink activations
-    towards 0 after a few blocks.
+    towards 0 after a few blocks. A module on the ``meta`` device holds no
+    values and is returned as it is (a full-width pipeline's shapes, built
+    without memory).
     """
     device = next(module.parameters()).device
+    if device.type == "meta":
+        return module
     gen = torch.Generator(device=device).manual_seed(seed)
     norm_scales = {
         id(m.weight) for m in module.modules() if isinstance(m, (nn.LayerNorm, nn.GroupNorm))

@@ -71,7 +71,7 @@ def test_chip_smoke_wires_every_phase_into_main():
     for kernel in ("flash_fwd", "flash_bwd_", "mma_probe"):
         assert f'"name": "{kernel}' in source or f'"name": f"{kernel}' in source, kernel
     assert smoke.PATH_SHAPES["xl"] == [(4096, 64, 10, 10), (1024, 64, 20, 60)]
-    assert smoke.SITES == {"sd": 16, "xl": 70} and smoke.GRAD_SITES == {"sd": 15, "xl": 69}
+    assert smoke.SITES == {"sd": 16, "xl": 70, "sd21": 16} and smoke.GRAD_SITES == {"sd": 15, "xl": 69, "sd21": 15}
     assert smoke.PATH_SHAPES["sd"][0] == (4096, 40, 8, 5)  # the SD1.5 shapes stay
     assert "xl_tiny" in inspect.getsource(smoke.phase_tiny) and "tiny_edits" in inspect.getsource(smoke.phase_tiny)
     assert '"at_bias"' in source and '"masactrl_path": launches["masactrl"]' in source
@@ -220,7 +220,7 @@ def test_chip_smoke_covers_p2z():
     import inspect
 
     smoke = _load_script()
-    assert smoke.P2Z_BATCH == 2 and smoke.SITES == {"sd": 16, "xl": 70}
+    assert smoke.P2Z_BATCH == 2 and smoke.SITES == {"sd": 16, "xl": 70, "sd21": 16}
     bwd = inspect.getsource(smoke.phase_bwd_kernels)
     assert "check(dtype, P2Z_BATCH, h, n, n, d" in bwd and "into=p2z_sums" in bwd
     assert "for model, shapes in PATH_SHAPES.items()" in bwd  # every site, the first included
@@ -516,7 +516,8 @@ def test_chip_smoke_wires_the_validation_path():
     assert '"validation_path": validation[0][i + 1]' in source
     assert "validate_refiner(" in inspect.getsource(smoke.phase_xl_checkpoint_path)
     phase = inspect.getsource(smoke.phase_validation_path)
-    assert "validate.main(" in phase and '"--methods", "p2p"' in phase and "TOWER_RTOL" in phase
+    assert "validate.main(" in phase and "golden_check.main(" in phase and '"--method", "p2p"' in phase
+    assert "TOWER_RTOL" in phase
     assert set(" ".join(smoke.CKPT_PROMPTS).split()) <= set(smoke.CKPT_WORDS)
     assert smoke.TOWER_RTOL == 1e-4
 
@@ -573,7 +574,7 @@ def test_xl_p2z_nti_cut_keeps_steps_and_embeddings_aligned():
     assert "pipe.scheduler = denoise, guided, full_schedule" in path  # the full schedule restored
     assert steps % smoke.XL_NTI_STRIDE == 0 and smoke.XL_NTI_STRIDE > 1
     nti = inspect.getsource(smoke.phase_nti_path)
-    assert "steps = STEPS // XL_NTI_STRIDE if model == \"xl\" else STEPS" in nti
+    assert "steps = STEPS if model == \"sd\" else STEPS // XL_NTI_STRIDE" in nti
     assert "sites * 4 * steps + per_iteration * j" in nti and "pipe.scheduler = inner, config_for, full_schedule" in nti
     masa = inspect.getsource(smoke.phase_masactrl_path)
     assert '("nti_mutual", nti[0], dict(uncond_seq=nti[1]), sites, nti[1].shape[0])' in masa
@@ -670,3 +671,73 @@ def test_tp_part_rehearses_on_cpu_ranks(tmp_path):
         assert str(res["copy_fault/error"]).startswith("tp the train step's gradients"), str(res["copy_fault/error"])
     for key in (k for k in ranks[0] if k.startswith("sound/") and k != "sound/errors"):
         assert str(ranks[0][key]) == str(ranks[1][key]), key
+
+
+def test_chip_smoke_wires_the_sd21_path():
+    """sd21_path runs after the SDXL paths and before the refiner, its NTI
+    run after it on its loaded pipe; both join the kernels line (the forward's
+    launches, both backwards' from the NTI run) and the share lines; SD2.1's
+    shapes are its 768² sites at head dim 64 (the sums of its UNet
+    forward's 16 and its gradient's 15); the conversion goes through the
+    port's tool; cp_main_path runs on the 10-step schedule."""
+    import inspect
+
+    smoke = _load_script()
+    source = inspect.getsource(smoke.main)
+    assert source.index('("sd", ""), ("xl", "xl_")') < source.index("phase_sd21_path") < source.index(
+        '"sd21_nti_path", phase_nti_path, "sd21"') < source.index("phase_refiner")
+    assert '"sd21_path": launches["sd21"]' in source and '"sd21_nti_path": bwd_launches["sd21"][i]' in source
+    assert '"at_sd21"' in source and 'emit("share", model="sd21"' in source
+    assert smoke.PATH_SHAPES["sd21"] == [(9216, 64, 5, 5), (2304, 64, 10, 5), (576, 64, 20, 5), (144, 64, 20, 1)]
+    assert [shape[:3] for shape in smoke.GRAD_SHAPES["sd21"]] == [shape[:3] for shape in smoke.PATH_SHAPES["sd21"]]
+    assert [n for n, *_ in smoke.PATH_SHAPES["sd21"]] == [(768 // 8 // 2**level) ** 2 for level in range(4)]
+    assert all(d == 64 and h * d in (320, 640, 1280) for _, d, h, _ in smoke.PATH_SHAPES["sd21"])
+    assert smoke.FAMILIES["sd21"] == ("2.1", "SD2.1", 768, 1024) and set(smoke.MODELS) == {"sd", "xl"}
+    phase = inspect.getsource(smoke.phase_sd21_path)
+    assert "tools.convert_checkpoint" in phase and '"--family", "sd21"' in phase and "cli.load_pipe(version)" in phase
+    assert "cli.invert(" in phase and 'cli.run_method("p2p"' in phase
+    main_path = inspect.getsource(smoke.cp_main_path)
+    assert "num_steps=steps" in main_path and "steps = STEPS // XL_NTI_STRIDE" in main_path
+
+
+@pytest.mark.parametrize("n,d", [(576, 64), (144, 64)])
+def test_planted_faults_exceed_the_limit_at_sd21s_ragged_sites(n, d):
+    """At SD2.1's 576- and 144-token sites, whose last key tile is part
+    filled, a skipped last tile and a missing rescale each move O by more
+    than the bf16 limit, as head-split views (the card runs the same
+    readings on the kernel's output)."""
+    from image_editing_framework_torch.ops import flash_attention as fa
+    from image_editing_framework_torch.ops.attention import split_heads
+
+    smoke = _load_script()
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (split_heads(torch.randn(1, n, 4 * d, generator=gen).to(torch.bfloat16), 4) for _ in range(3))
+    ref = fa.flash_attention_reference(q, k, v)
+    faults = smoke.fault_readings(q, k, v, ref)
+    tol = fa.parity_atol(ref)
+    assert faults["skipped_key_tile"] > tol and faults["no_acc_rescale"] > tol, (faults, tol)
+
+
+def test_sd21_single_file_writer_round_trips_on_meta(monkeypatch):
+    """The SD2.1 phase's single file (``to_ldm_single_file_21``) at full
+    width, on meta tensors, through the port's ``convert_single_file``:
+    every key and shape of the UNet, VAE and OpenCLIP-H tower, and the 24th
+    resblock kept beside the 23 the tower has (the loader ignores it)."""
+    from image_editing_framework_torch.models import configs, convert_ldm
+    from image_editing_framework_torch.models.vae import VAEConfig
+    from image_editing_framework_torch.pipelines import random_pipeline
+
+    smoke = _load_script()
+    pipe = random_pipeline("2.1", num_steps=2, device="meta")
+    state = smoke.to_ldm_single_file_21(pipe)
+    assert all(k.startswith(("model.diffusion_model.", "first_stage_model.", "cond_stage_model.model."))
+               for k in state)
+    assert "cond_stage_model.model.transformer.resblocks.23.attn.in_proj_weight" in state
+    monkeypatch.setattr(convert_ldm, "load_safetensors", lambda path: state)
+    unet, vae, text = convert_ldm.convert_single_file("sd21.safetensors", configs.SD21_UNET, VAEConfig())
+    for got, module in ((unet, pipe.unet), (vae, pipe.vae), (text, pipe.text_encoder)):
+        want = module.state_dict()
+        extra = sorted(set(got) - set(want))
+        assert set(want) <= set(got) and all(tuple(got[k].shape) == tuple(want[k].shape) for k in want)
+        assert extra == ([] if module is not pipe.text_encoder else
+                         sorted(k.replace("layers.22.", "layers.23.") for k in want if ".layers.22." in k))

@@ -147,3 +147,23 @@ def test_every_module_of_the_jax_package_has_its_port():
     assert missing == ["models/init_utils.py", "native/__init__.py", "utils/jax_cache.py"]
     for name in ("parallel/sharding.py", "utils/profiling.py"):
         assert os.path.exists(os.path.join(PKG, name)), name
+
+
+def test_every_root_tool_has_its_port():
+    """Each repo-root tool (``tools/*.py``, the JAX package's: each imports
+    JAX or the JAX package, or launches one that does) has a counterpart
+    under the port's ``tools/`` of the same name, but the benchmark tools
+    (``bench_serve``, ``bench_sweep``, ``profile_unet``: the port's
+    benchmark is work of its own) and the two flash benches, whose twins
+    were named for the port's kernels."""
+    twins = {"bench_flash_t": "bench_flash_fwd", "bench_flash_bwd_t": "bench_flash_bwd"}
+    benchmarks = {"bench_serve", "bench_sweep", "profile_unet"}
+    tools = os.path.join(ROOT, "tools")
+    names = sorted(name[:-3] for name in os.listdir(tools) if name.endswith(".py"))
+    jax_users = [name for name in names if _imported_roots(os.path.join(tools, f"{name}.py"))[0]
+                 & {"jax", "image_editing_framework_tpu"}]
+    assert len(jax_users) == 10 and "convert_checkpoint" in jax_users
+    missing = [name for name in names if name not in benchmarks
+               and not os.path.exists(os.path.join(PKG, "tools", f"{twins.get(name, name)}.py"))]
+    assert missing == []
+    assert benchmarks <= set(jax_users)
