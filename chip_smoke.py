@@ -30,7 +30,8 @@ Phases, one line of output each (any failure exits non-zero):
      at the batched paths' batches: the forward at each group's G and
      CFG-4 x G (2, 3, 8, 12, 16) at every SD1.5 site shape, and bitwise
      equal rows out of a batch of 16 equal rows; the backward at batched
-     NTI's 3 and batched p2z's CFG-2 x 2 = 4 at every SD1.5 site, held only;
+     NTI's 3 and batched p2z's CFG-2 x 2 = 4 at every SD1.5 site and at 4
+     at every SDXL site, held with their planted faults;
      probe: the tile-shape probe kernel against its plain version for
      every layout and head dim, every block's value, then its timed table
      through the tool's entry point;
@@ -72,9 +73,22 @@ Phases, one line of output each (any failure exits non-zero):
      drained; the first request again alone; each group's exact launches
      (those of one image), the answers, the groups, the PNGs, the torn
      file's rejection;
+     grad groups path: the gradient paths' groups on the same snapshot, on
+     a 10-step schedule: the service's pix2pix-zero DDIM group of 2 and P2P
+     null-text group of 2, and a pix2pix-zero request alone (exact
+     launches: the p2z group one image's, the null-text group one image's
+     inversion and edit and each image's NTI); batched NTI of a group of 3
+     whose images stop apart at step 0 (a stopped image's embedding frozen
+     bit for bit), P2P and p2z ``edit_batch`` on its embeddings; the
+     group's f32 guided step against each image's alone (1e-3 ·
+     max|ref|);
+     launcher path: two processes of ``tools/launch_distributed_sweep.py
+     --random_weights --num_steps 10`` at once, shards 0 and 1 of 2 over a
+     mini PIE into one ``--exp_path``: exit codes, the shards' partition,
+     every item's PNGs, both stats files;
      validation path: the validation runway (``eval/validate.py main``) on
      the same snapshot with a seeded random CLIP checkpoint and LPIPS file:
-     all four methods on the synthesized source image, 50 steps, its
+     all four methods on the synthesized source image, 10 steps, its
      report's hashes, metrics and exact launches, the CLIP and LPIPS towers
      on the card against the same towers on the CPU, then P2P again through
      the port's ``tools/golden_check.py`` against the runway's report;
@@ -109,7 +123,10 @@ Phases, one line of output each (any failure exits non-zero):
      with ``XL_INNER_STEPS`` inner iterations per step and the checkpointed
      UNet; p2z with the references recomputed from pass 1's trajectory and
      the checkpointed UNet, the XL defaults, both of its edits over every
-     5th step), decode full-frame and tiled;
+     5th step, as SD1.5's), decode full-frame and tiled; then
+     xl p2z group path: a batched pix2pix-zero group of 2 through
+     ``edit_batch("p2z", ...)`` on the 10-step schedule (CFG batch 4 through
+     the checkpointed UNet): exact launches, finite latents, the peak;
   10. sd21 path: SD2.1 at full width from a converted single file: the
      weights of ``random_pipeline("2.1")`` written as an fp16 LDM single
      file (OpenCLIP-H with a 24th resblock, as real SD2.x files carry),
@@ -143,7 +160,17 @@ Phases, one line of output each (any failure exits non-zero):
      ``make_sharded_train_step`` step on an SD1.5 UNet at batch 2 (loss and
      gradients within 1e-3 · max|ref| of the unsharded step, 16 / 16 / 16
      launches); the ranks' outputs, records, losses and replicated weights
-     bitwise equal;
+     bitwise equal; then on the same split SD1.5 pipe an f32 p2z guided
+     step's gradient against the unsharded one (1e-3 · max|ref|, the
+     recorded maps' heads gathered under autograd), and, cast to bf16, NTI
+     (2 inner iterations a step, its stop in lockstep over the tensor mesh)
+     and p2z on a 10-step schedule; (e) NTI and pix2pix-zero under the ring:
+     on (b)'s module, f32 gradients of a random projection of the output
+     with respect to the latent and the context through the checkpointed
+     UNet at batch 1 and 2 against unsharded (1e-3 · max|ref|), and on (c)'s
+     pipe and inversion NTI over 5 steps and ``cli.run_method("p2z")`` over
+     its 10, exact launches per rank, the ranks' gradients, embeddings,
+     stops and images bitwise equal;
 then each phase's seconds, the kernels JSON line, the card line, and the
 result line last.
 """
@@ -706,10 +733,13 @@ def phase_bwd_kernels(gen):
     sums, p2z_sums = ({model: {kernel: dict.fromkeys(keys, 0.0) for kernel in ("dq", "dkv", "all")}
                        for model in GRAD_SHAPES} for _ in range(2))
 
-    def check(dtype, b, h, nq, nk, d, bias=None, timed=False, sites=0, zero_batch=None, model=None, into=sums):
+    def check(dtype, b, h, nq, nk, d, bias=None, timed=False, sites=0, zero_batch=None, model=None, into=sums,
+              faults=False):
         """Path shapes (``model`` given) come as the UNet and autograd give
         them: head-split views of (B, N, H·D) tensors, dO included; the edge
-        cases as contiguous tensors."""
+        cases as contiguous tensors. A timed bf16 check, and one with
+        ``faults``, also reads the planted faults, which its limits must
+        reject."""
         def make(n):
             if model:
                 return split_heads(torch.randn(b, n, h * d, device="cuda", dtype=dtype, generator=gen), h)
@@ -743,11 +773,11 @@ def phase_bwd_kernels(gen):
                    forward=dict(max_abs_err=fwd_err, tol=fwd_tol, lse_max_abs_err=lse_err))
         if model:
             row["model"] = model
-        if timed and dtype == torch.bfloat16:
-            row["faults"] = faults = bwd_fault_readings(q, k, v, do, ref_o, ref_lse, ref)
-            passed = [name for name, reads in faults.items() if not any(e > tols[out] for out, e in reads.items())]
+        if (timed or faults) and dtype == torch.bfloat16:
+            row["faults"] = readings = bwd_fault_readings(q, k, v, do, ref_o, ref_lse, ref)
+            passed = [name for name, reads in readings.items() if not any(e > tols[out] for out, e in reads.items())]
             if passed:
-                raise AssertionError(f"the bf16 limits {tols} do not reject the planted faults {passed}: {faults}")
+                raise AssertionError(f"the bf16 limits {tols} do not reject the planted faults {passed}: {readings}")
         if timed:
             scale = 1.0 / math.sqrt(d)
             di = fa._bwd_di(o, do)
@@ -794,11 +824,13 @@ def phase_bwd_kernels(gen):
         bias = torch.zeros(2, 512, device="cuda")
         bias[0] = float("-inf")  # every logit -inf: zero gradients
         check(dtype, 2, HEADS, 64, 512, 160, bias=bias, zero_batch=0)
-    # the batched gradients' batches: batched NTI's group of NTI_GROUP at
-    # every site its gradient reaches, batched p2z's CFG-2 x P2Z_GROUP at all
-    for batch, shapes in ((NTI_GROUP, GRAD_SHAPES["sd"]), (P2Z_BATCH * P2Z_GROUP, PATH_SHAPES["sd"])):
+    # the batched gradients' batches, each with its planted faults: batched
+    # NTI's group of NTI_GROUP at every site its gradient reaches, batched
+    # p2z's CFG-2 x P2Z_GROUP at all (SD1.5's and SDXL's)
+    for batch, model, shapes in ((NTI_GROUP, "sd", GRAD_SHAPES["sd"]), (P2Z_BATCH * P2Z_GROUP, "sd", PATH_SHAPES["sd"]),
+                                 (P2Z_BATCH * P2Z_GROUP, "xl", PATH_SHAPES["xl"])):
         for n, d, h, _ in shapes:
-            check(torch.bfloat16, batch, h, n, n, d, model="sd")
+            check(torch.bfloat16, batch, h, n, n, d, model=model, faults=True)
     for part in list(sums.values()) + list(p2z_sums.values()):
         for kernel in part:
             part[kernel]["bound_ms"], part[kernel]["bound_by"] = bound_ms(
@@ -1912,14 +1944,60 @@ SERVE_SPOOL = {
 
 
 P2P_GROUP = ("p2p_0", "p2p_1", "p2p_2", "p2p_3")
+# the service's schedule: 10 steps since the gradient paths' groups joined
+# the script (a cut in depth: a group's launches are one image's per step)
+SERVE_STEPS = 10
 MASA_GROUP = ("masa_0", "masa_1")
+
+
+def load_snapshot(snapshot):
+    """(the SD1.5 snapshot ``phase_checkpoint_path`` wrote, loaded by
+    ``cli.load_pipe("1.5")`` in bf16, the load's seconds)."""
+    from image_editing_framework_torch import cli, sd_mapping
+
+    saved = dict(sd_mapping.sd_maps)
+    try:
+        sd_mapping.sd_maps["1.5"] = snapshot
+        return timed(lambda: cli.load_pipe("1.5"))
+    finally:
+        sd_mapping.sd_maps.clear()
+        sd_mapping.sd_maps.update(saved)
+
+
+def served_response(svc, name):
+    import os
+
+    with open(os.path.join(svc.results_dir, name, "response.json")) as f:
+        return json.load(f)
+
+
+def served_calls(svc):
+    """Each group's or request's launches, seconds and NTI inner iterations,
+    read around its call on the polling thread: {names: (launches, seconds,
+    inner iterations)}."""
+    from image_editing_framework_torch.inversion import nti
+
+    calls, handle_batch, handle = {}, svc.handle_batch, svc.handle
+
+    def read(key, fn, *args, **kw):
+        before, inner, start = launch_counts(), nti.null_text_inversion.inner_iterations, time.perf_counter()
+        try:
+            out, _ = timed(lambda: fn(*args, **kw))
+        finally:  # a request that fails counts too
+            calls[key] = (tuple(a - b for a, b in zip(launch_counts(), before)), time.perf_counter() - start,
+                          nti.null_text_inversion.inner_iterations - inner)
+        return out
+
+    svc.handle_batch = lambda names, *a, **kw: read(tuple(names), handle_batch, names, *a, **kw)
+    svc.handle = lambda name, *a, **kw: read((name,), handle, name, *a, **kw)
+    return calls
 
 
 def phase_serve_path(root, snapshot):
     """The editing service, the system's production entry point
     (``serve.py EditService.poll_once``), on the SD1.5 snapshot
     ``phase_checkpoint_path`` wrote into ``root``, loaded by
-    ``cli.load_pipe`` in bf16, 512², 50 steps: a spool of ``SERVE_SPOOL``
+    ``cli.load_pipe`` in bf16, 512², ``SERVE_STEPS`` steps: a spool of ``SERVE_SPOOL``
     (smooth seeded 512² PNGs, DDIM inversion, the synthesis request at seed
     7) and one torn request file, polled until drained with
     ``max_batch=SERVE_GROUP``; then the first P2P request alone on a service
@@ -1935,18 +2013,13 @@ def phase_serve_path(root, snapshot):
 
     from PIL import Image
 
-    from image_editing_framework_torch import cli, sd_mapping
     from image_editing_framework_torch.serve import EditService
-    from image_editing_framework_torch.utils.images import decode_png
+
+    from image_editing_framework_torch.core.scheduler import make_ddim_schedule
 
     side = MODELS["sd"][2]
-    saved = dict(sd_mapping.sd_maps)
-    try:
-        sd_mapping.sd_maps["1.5"] = snapshot
-        pipe, load_s = timed(lambda: cli.load_pipe("1.5"))
-    finally:
-        sd_mapping.sd_maps.clear()
-        sd_mapping.sd_maps.update(saved)
+    pipe, load_s = load_snapshot(snapshot)
+    pipe.scheduler = make_ddim_schedule(SERVE_STEPS)
     rng = np.random.RandomState(11)
     inputs = os.path.join(root, "service_inputs")
     os.makedirs(inputs)
@@ -1964,33 +2037,10 @@ def phase_serve_path(root, snapshot):
         with open(os.path.join(svc.requests_dir, name + ".json"), "w") as f:
             json.dump(req, f)
 
-    def counted(svc):
-        """Each group's or request's launches and seconds, read around its
-        call on the polling thread: {names: (launches, seconds)}."""
-        calls, handle_batch, handle = {}, svc.handle_batch, svc.handle
-
-        def read(key, fn, *args, **kw):
-            before, start = launch_counts(), time.perf_counter()
-            try:
-                out, _ = timed(lambda: fn(*args, **kw))
-            finally:  # a request that fails counts too
-                calls[key] = (tuple(a - b for a, b in zip(launch_counts(), before)), time.perf_counter() - start)
-            return out
-
-        svc.handle_batch = lambda names, *a, **kw: read(tuple(names), handle_batch, names, *a, **kw)
-        svc.handle = lambda name, *a, **kw: read((name,), handle, name, *a, **kw)
-        return calls
-
-    def response(svc, name):
-        with open(os.path.join(svc.results_dir, name, "response.json")) as f:
-            return json.load(f)
+    response = served_response
 
     def png(svc, name, f):
-        with open(os.path.join(svc.results_dir, name, f + ".png"), "rb") as fh:
-            img = decode_png(fh.read())
-        if img is None or img.shape != (side, side, 3) or img.dtype != np.uint8 or img.std() == 0:
-            raise AssertionError(f"served {name}/{f}.png: {None if img is None else img.shape}, constant or misshapen")
-        return img
+        return png_of(os.path.join(svc.results_dir, name), f, side, f"served {name}/")
 
     svc = EditService(pipe, os.path.join(root, "service"), max_batch=SERVE_GROUP)
     solo = EditService(pipe, os.path.join(root, "service_solo"), max_batch=1)
@@ -2000,7 +2050,7 @@ def phase_serve_path(root, snapshot):
         torn = os.path.join(svc.requests_dir, "torn.json")
         with open(torn, "w") as f:
             f.write('{"method": "p2p", "source_prompt": "a cat')
-        calls = counted(svc)
+        calls = served_calls(svc)
         reset_launch_counts()
         polls = []
         while any(f.endswith(".json") for f in os.listdir(svc.requests_dir)):
@@ -2011,16 +2061,16 @@ def phase_serve_path(root, snapshot):
         poll_launches = launch_counts()
         # the first P2P request again, alone
         request(solo, "p2p_0")
-        solo_calls = counted(solo)
+        solo_calls = served_calls(solo)
         reset_launch_counts()
         solo_handled, solo_s = timed(solo.poll_once)
 
         # a group launches what one image does; a synthesis inverts nothing,
         # as an item from the cache
-        real, synthesis = (sweep_launches(SITES["sd"], 1, STEPS, cached) for cached in (False, True))
+        real, synthesis = (sweep_launches(SITES["sd"], 1, SERVE_STEPS, cached) for cached in (False, True))
         expected = {P2P_GROUP: (real, 0, 0), MASA_GROUP: (real, 0, 0), ("syn",): (synthesis, 0, 0),
                     ("nope",): (0, 0, 0)}
-        got = {key: launches for key, (launches, _) in calls.items()}
+        got = {key: launches for key, (launches, _, _) in calls.items()}
         if got != expected or poll_launches != tuple(map(sum, zip(*expected.values()))):
             raise AssertionError(f"served launches (forward, dQ, dK/dV) {got}, the poll {poll_launches}; expected "
                                  f"{expected}")
@@ -2052,10 +2102,10 @@ def phase_serve_path(root, snapshot):
         for service in (svc, solo):
             service._io_pool.shutdown()
             service._finalize_pool.shutdown()
-    group_s = {",".join(k): s for k, (_, s) in calls.items()}
+    group_s = {",".join(k): s for k, (_, s, _) in calls.items()}
     per_image = calls[P2P_GROUP][1] / len(P2P_GROUP)
     emit("serve_path", model="SD1.5 (random weights, seed 0, from the fp16 snapshot, bf16)", resolution=side,
-         dtype="bfloat16", steps=STEPS, load_s=load_s, max_batch=SERVE_GROUP, polls=polls,
+         dtype="bfloat16", steps=SERVE_STEPS, load_s=load_s, max_batch=SERVE_GROUP, polls=polls,
          poll_s=sum(p["seconds"] for p in polls), s_per_request=sum(p["seconds"] for p in polls) / len(SERVE_SPOOL),
          call_s=group_s, launches={",".join(k): v for k, v in got.items()}, poll_launches=poll_launches,
          p2p_group_s_per_image=per_image, masactrl_group_s_per_image=calls[MASA_GROUP][1] / len(MASA_GROUP),
@@ -2067,12 +2117,520 @@ def phase_serve_path(root, snapshot):
     return poll_launches[0] + solo_calls[("p2p_0",)][0][0]
 
 
+# The gradient paths' groups (grad_groups_path, SD1.5 512², the snapshot as
+# the service loads it; xl_p2z_group_path, SDXL 1024²) and the parallel
+# runs of NTI and pix2pix-zero (cp_path (e), tp (d4)-(d5)) run on 10-step
+# schedules: every GRAD_STRIDE-th step of the 50, a cut in depth only (a
+# group launches per step what one image does at any depth).
+GRAD_STRIDE = 5
+GRAD_INNER_STEPS = 2  # NTI inner iterations a step there (random weights never stop at the default epsilon)
+GRAD_RTOL = 1e-3  # f32: a group's guided step against each image's alone; CP's gradients against unsharded
+GRAD_STEP = 5  # the f32 guided step's index on the 10-step schedule
+# the service's gradient groups: name -> (method, source, target, inversion)
+GRAD_SPOOL = {
+    "p2z_0": ("p2z", "a cat sitting on the grass", "a dog sitting on the grass", "ddim"),
+    "p2z_1": ("p2z", "a dog sitting on the grass", "a cat standing on the grass", "ddim"),
+    "nti_0": ("p2p", "a cat sitting on the grass", "a white cat sitting on the grass", "null-text"),
+    "nti_1": ("p2p", "a dog sitting on the grass", "a small dog sitting on the grass", "null-text"),
+}
+P2Z_SERVE_GROUP = ("p2z_0", "p2z_1")
+NTI_SERVE_GROUP = ("nti_0", "nti_1")
+# batched NTI's group of NTI_GROUP: each image's (source, target), its start
+# latent scaled as TINY_NTI_SCALES scales the tiny group's
+NTI_GROUP_PAIRS = [SERVE_SPOOL[name][1:3] for name in P2P_GROUP[:NTI_GROUP]]
+XL_P2Z_PAIRS = [PROMPTS, PROMPTS[::-1]]  # SDXL's batched pix2pix-zero group of P2Z_GROUP
+LAUNCHER_SHARDS = 2
+LAUNCHER_TIMEOUT_S = 300
+
+
+def p2z_launches(sites, steps, recompute=False, checkpointed=False, inverted=True, grad_sites=None):
+    """(forward, dQ, dK/dV) launches of one image's pix2pix-zero edit, which a
+    group launches too: a step of pass 1's forward, pass 2's gradient and
+    noise forwards (with recomputed references their forward too, with the
+    checkpointed UNet the blocks' forward again in the backward pass), the
+    backward at ``grad_sites`` (every site: the gradient reaches the input
+    latent); the DDIM inversion's forward a step if ``inverted``."""
+    grad_sites = sites if grad_sites is None else grad_sites
+    per_step = sites * (3 + int(recompute) + int(checkpointed))
+    return per_step * steps + (sites * steps if inverted else 0), grad_sites * steps, grad_sites * steps
+
+
+def nti_launches(sites, grad_sites, steps, inner, checkpointed=False, images=1):
+    """(forward, dQ, dK/dV) launches of null-text inversion of ``images``
+    images run one by one, or of a group's batch (``images`` 1), over
+    ``steps`` steps and ``inner`` inner iterations in all (a batch's: its
+    slowest image's at each step): a conditional and a final forward a step,
+    an inner iteration's forward (twice with the checkpointed UNet) and its
+    backward at the gradient's sites."""
+    fwd = sites * (2 * steps * images + inner * (1 + int(checkpointed)))
+    return fwd, grad_sites * inner, grad_sites * inner
+
+
+def sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def seconds_of(fn, device):
+    """(fn(), seconds from one synchronize to the next), on any device."""
+    sync(device)
+    start = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, time.perf_counter() - start
+
+
+@contextlib.contextmanager
+def steps_schedule(pipe, steps):
+    """The pipe's schedule swapped for a ``steps``-step one (every
+    50 / steps-th step of the 50), the full one restored after."""
+    from image_editing_framework_torch.core.scheduler import make_ddim_schedule
+
+    full = pipe.scheduler
+    pipe.scheduler = make_ddim_schedule(steps)
+    try:
+        yield pipe.scheduler
+    finally:
+        pipe.scheduler = full
+
+
+@contextlib.contextmanager
+def nti_inner_steps(inner):
+    """``cli.nti_config_for`` with ``inner`` inner iterations a step (the
+    service's and the CLI's NTI read their config from it)."""
+    from image_editing_framework_torch import cli
+
+    real = cli.nti_config_for
+    cli.nti_config_for = lambda method, pipe: dataclasses.replace(real(method, pipe), num_inner_steps=inner)
+    try:
+        yield
+    finally:
+        cli.nti_config_for = real
+
+
+@contextlib.contextmanager
+def nti_recorded():
+    """Records what NTI's inner loop runs on: ``seen["embeddings"]``, the
+    unconditional embeddings that enter each inner iteration's gradient
+    forward (G, 77, D), and ``seen["losses"]``, each iteration's loss
+    vector as every rank takes it (after ``lockstep``)."""
+    from image_editing_framework_torch.inversion import nti
+
+    seen, grad_unet, lockstep = {"embeddings": [], "losses": []}, nti.grad_unet, nti.lockstep
+
+    def recording_unet(*args, **kwargs):
+        unet = grad_unet(*args, **kwargs)
+
+        def call(x, t, ctx, *more, **kw):
+            if torch.is_grad_enabled():
+                seen["embeddings"].append(ctx.detach().clone())
+            return unet(x, t, ctx, *more, **kw)
+        return call
+
+    def recording_lockstep(x, mesh):
+        out = lockstep(x, mesh)
+        seen["losses"].append(out)
+        return out
+
+    nti.grad_unet, nti.lockstep = recording_unet, recording_lockstep
+    try:
+        yield seen
+    finally:
+        nti.grad_unet, nti.lockstep = grad_unet, lockstep
+
+
+def frozen_after_stop(stops, embeddings, seqs):
+    """How many (step, iteration, image) entries show an image that has
+    stopped keeping its embedding bit for bit: the embedding entering each
+    inner iteration after its stop equals the step's result. Raises on the
+    first that does not."""
+    if sum(max(step) for step in stops) != len(embeddings):
+        raise AssertionError(f"{len(embeddings)} inner iterations recorded, the stops {stops} say "
+                             f"{sum(max(step) for step in stops)}")
+    frozen, it = 0, 0
+    for i, step_stops in enumerate(stops):
+        for j in range(max(step_stops)):  # the embeddings entering iteration j + 1
+            for k, stop in enumerate(step_stops):
+                if j >= stop:
+                    if not torch.equal(embeddings[it + j][k], seqs[k, i]):
+                        raise AssertionError(f"image {k} stopped after {stop} inner iterations at step {i} but its "
+                                             f"embedding moved at iteration {j + 1}")
+                    frozen += 1
+        it += max(step_stops)
+    return frozen
+
+
+def step0_epsilon(pipe, trajs, prompts, guidance_scale=7.5):
+    """(an epsilon that splits a group's images at step 0, the step-0
+    losses): the geometric mean of the two adjacent sorted losses farthest
+    apart in ratio, the losses of the first inner iteration computed as
+    NTI computes them, so that the images below it stop after one iteration
+    and the rest iterate on."""
+    from image_editing_framework_torch.inversion import nti
+    from image_editing_framework_torch.methods.base import flat
+
+    g, s = trajs.shape[0], pipe.scheduler.num_steps
+    emb, _ = pipe.encode_prompts(list(prompts))
+    lat, target = flat(trajs[:, -1].float()), flat(trajs[:, s - 1].float())
+    t = int(pipe.scheduler.timesteps[0])
+    with torch.no_grad():
+        eps_c = pipe.unet(lat, t, emb[g:].float())[0]
+        losses = nti.nti_losses(pipe.unet, pipe.scheduler, 0, lat, target, eps_c, emb[:g].float(), guidance_scale)
+    ordered = sorted(losses.tolist())
+    low, high = max(zip(ordered, ordered[1:]), key=lambda pair: pair[1] / max(pair[0], 1e-30))
+    return math.sqrt(low * high), losses.tolist()
+
+
+def png_of(directory, name, side, what):
+    """The uint8 PNG ``directory/name.png``: ``side``², 3 channels, not
+    constant, or fail naming ``what``."""
+    import os
+
+    from image_editing_framework_torch.utils.images import decode_png
+
+    with open(os.path.join(directory, name + ".png"), "rb") as f:
+        img = decode_png(f.read())
+    if img is None or img.shape != (side, side, 3) or img.dtype != np.uint8 or img.std() == 0:
+        raise AssertionError(f"{what}{name}.png: {None if img is None else img.shape}, constant or misshapen")
+    return img
+
+
+def images_held(images, side, what):
+    """Every image of a (..., side, side, 3) uint8 array not constant."""
+    flat_images = images.reshape((-1,) + images.shape[-3:])
+    if images.shape[-3:] != (side, side, 3) or images.dtype != np.uint8 or any(x.std() == 0 for x in flat_images):
+        raise AssertionError(f"{what}: images {images.shape} {images.dtype}, constant or misshapen")
+
+
+def grad_groups_service(pipe, root):
+    """(A1): the editing service's gradient groups on the loaded snapshot,
+    ``max_batch`` = 2: ``GRAD_SPOOL`` (a pix2pix-zero DDIM group and a P2P
+    null-text group, ``GRAD_INNER_STEPS`` inner iterations a step), polled
+    once; then the first pix2pix-zero request alone (``max_batch`` = 1).
+    Gates: every answer "ok", groups of 2 and 2, every PNG 512² uint8 and
+    not constant, exact launches: the p2z group those of one image; the
+    null-text group one image's batched inversion and edit and each
+    image's NTI (run image by image, ``nti_group_serial``), at the inner
+    iterations it ran."""
+    import os
+
+    from PIL import Image
+
+    from image_editing_framework_torch.serve import EditService
+
+    side, sites, grad_sites = MODELS["sd"][2], SITES["sd"], GRAD_SITES["sd"]
+    steps = pipe.scheduler.num_steps
+    inputs = os.path.join(root, "grad_service_inputs")
+    os.makedirs(inputs, exist_ok=True)
+    rng = np.random.RandomState(12)
+
+    def request(svc, name):
+        method, source, target, inversion = GRAD_SPOOL[name]
+        path = os.path.join(inputs, name + ".png")
+        if not os.path.exists(path):
+            grid = Image.fromarray(rng.randint(0, 256, (8, 8, 3)).astype(np.uint8))
+            grid.resize((side, side), Image.BICUBIC).save(path)
+        with open(os.path.join(svc.requests_dir, name + ".json"), "w") as f:
+            json.dump(dict(method=method, source_prompt=source, target_prompt=target, image_path=path,
+                           inversion_type=inversion), f)
+
+    svc = EditService(pipe, os.path.join(root, "grad_service"), max_batch=P2Z_GROUP)
+    solo = EditService(pipe, os.path.join(root, "grad_service_solo"), max_batch=1)
+    try:
+        for name in GRAD_SPOOL:
+            request(svc, name)
+        calls = served_calls(svc)
+        torch.cuda.reset_peak_memory_stats()
+        with nti_inner_steps(GRAD_INNER_STEPS):
+            handled, poll_s = timed(svc.poll_once)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        request(solo, P2Z_SERVE_GROUP[0])
+        solo_calls = served_calls(solo)
+        solo_handled, _ = timed(solo.poll_once)
+        answers = {name: served_response(svc, name) for name in GRAD_SPOOL}
+        solo_answer = served_response(solo, P2Z_SERVE_GROUP[0])
+    finally:
+        for service in (svc, solo):
+            service._io_pool.shutdown()
+            service._finalize_pool.shutdown()
+    bad = {name: r for name, r in answers.items() if r["status"] != "ok" or r.get("batched_with") != 2}
+    if bad or solo_answer["status"] != "ok" or handled != len(GRAD_SPOOL) or solo_handled != 1:
+        raise AssertionError(f"the service's gradient groups answered {bad or answers}, alone {solo_answer}")
+    inner = calls.get(NTI_SERVE_GROUP, (None, None, 0))[2]
+    if not len(NTI_SERVE_GROUP) * steps <= inner <= len(NTI_SERVE_GROUP) * steps * GRAD_INNER_STEPS:
+        raise AssertionError(f"the null-text group ran {inner} inner iterations over {steps} steps")
+    nti_fwd, nti_dq, nti_dkv = nti_launches(sites, grad_sites, steps, inner, images=len(NTI_SERVE_GROUP))
+    one_p2z = p2z_launches(sites, steps)
+    expected = {P2Z_SERVE_GROUP: one_p2z, NTI_SERVE_GROUP: (2 * sites * steps + nti_fwd, nti_dq, nti_dkv)}
+    got = {key: launches for key, (launches, _, _) in calls.items()}
+    if got != expected or solo_calls[P2Z_SERVE_GROUP[:1]][0] != one_p2z:
+        raise AssertionError(f"the gradient groups launched (forward, dQ, dK/dV) {got}, alone "
+                             f"{solo_calls[P2Z_SERVE_GROUP[:1]][0]}; expected {expected}, alone {one_p2z}")
+    for name in GRAD_SPOOL:
+        for f in ("source", "inversion", "edit"):
+            png_of(os.path.join(svc.results_dir, name), f, side, f"served {name}/")
+    grouped_vs_solo = {}
+    for f in ("inversion", "edit"):
+        a, b = (png_of(os.path.join(s.results_dir, P2Z_SERVE_GROUP[0]), f, side, "served ").astype(np.int32)
+                for s in (svc, solo))
+        grouped_vs_solo[f] = dict(max_levels=int(np.abs(a - b).max()), mean_levels=float(np.abs(a - b).mean()))
+    seconds = {",".join(k): s for k, (_, s, _) in calls.items()}
+    return dict(poll_s=poll_s, call_s=seconds,
+                s_per_image={",".join(k): s / len(k) for k, (_, s, _) in calls.items()},
+                solo_s=solo_calls[P2Z_SERVE_GROUP[:1]][1], launches={",".join(k): v for k, v in got.items()},
+                nti_inner_iterations=inner, groups={name: 2 for name in answers}, p2z_grouped_vs_solo=grouped_vs_solo,
+                peak_gib=peak), tuple(map(sum, zip(one_p2z, *expected.values())))
+
+
+def grad_groups_nti_batch(pipe):
+    """(A2): batched NTI (``eval/batched.py nti_batch``) of a group of
+    NTI_GROUP, ``GRAD_INNER_STEPS`` inner iterations a step, its start
+    latents scaled as TINY_NTI_SCALES scales the tiny group's and its
+    epsilon taken between its step-0 losses (``step0_epsilon``), so that the
+    images stop at different inner iterations; then ``edit_batch`` P2P and
+    pix2pix-zero of the first P2Z_GROUP images on those embeddings. Gates:
+    the stops differ between the images; an image that has stopped keeps
+    its embedding bit for bit (``frozen_after_stop``); exact launches of
+    the NTI (the group's slowest image's iterations at each step) and of
+    each edit (one image's); finite embeddings; 512² images, not constant.
+    Returns (the line, the launches, (the inverted latents, the embeddings,
+    the pairs))."""
+    from image_editing_framework_torch.core.config import NTIConfig
+    from image_editing_framework_torch.eval import batched
+    from image_editing_framework_torch.eval.sweep import _auto_p2p_config
+    from image_editing_framework_torch.inversion import nti
+
+    side, sites, grad_sites = MODELS["sd"][2], SITES["sd"], GRAD_SITES["sd"]
+    steps, lat = pipe.scheduler.num_steps, side // 8
+    sources = [pair[0] for pair in NTI_GROUP_PAIRS]
+    gen = torch.Generator(device=pipe.device).manual_seed(13)
+    scales = torch.tensor(TINY_NTI_SCALES, device=pipe.device)[:, None, None, None, None]
+    lats = (torch.randn(NTI_GROUP, 1, lat, lat, 4, device=pipe.device, generator=gen) * scales).to(pipe.dtype)
+    inverted, trajs = batched.ddim_invert_batch(pipe, lats, sources, return_trajectory=True)
+    epsilon, step0_losses = step0_epsilon(pipe, trajs, sources)
+    cfg = NTIConfig(num_inner_steps=GRAD_INNER_STEPS, epsilon=epsilon)
+    reset_launch_counts()
+    nti.null_text_inversion.inner_iterations = 0
+    with nti_recorded() as seen:
+        (seqs, stops), nti_s = timed(lambda: batched.nti_batch(pipe, trajs, sources, cfg, return_stops=True))
+    counts, inner = launch_counts(), sum(max(step) for step in stops)
+    if counts != nti_launches(sites, grad_sites, steps, inner) or nti.null_text_inversion.inner_iterations != inner:
+        raise AssertionError(f"batched NTI launched (forward, dQ, dK/dV) {counts} over {inner} inner iterations, "
+                             f"expected {nti_launches(sites, grad_sites, steps, inner)}")
+    if not any(len(set(step)) > 1 for step in stops):
+        raise AssertionError(f"batched NTI's images stopped together at every step: {stops} (epsilon {epsilon}, "
+                             f"step-0 losses {step0_losses})")
+    frozen = frozen_after_stop(stops, seen["embeddings"], seqs)
+    if seqs.shape != (NTI_GROUP, steps, 77, MODELS["sd"][3]) or not torch.isfinite(seqs).all() or not frozen:
+        raise AssertionError(f"batched NTI's embeddings {tuple(seqs.shape)}, not finite or never frozen ({frozen})")
+    pairs = NTI_GROUP_PAIRS[:P2Z_GROUP]
+    edits, totals = {}, counts
+    for method in ("p2p", "p2z"):
+        cfgs = [_auto_p2p_config(*pair) for pair in pairs] if method == "p2p" else None
+        reset_launch_counts()
+        images, edit_s = timed(lambda: batched.edit_batch(method, pipe, pairs, inverted[:P2Z_GROUP], cfgs,
+                                                          uncond_seqs=seqs[:P2Z_GROUP]))
+        got = launch_counts()
+        want = (sites * steps, 0, 0) if method == "p2p" else p2z_launches(sites, steps, inverted=False)
+        if got != want:
+            raise AssertionError(f"{method} on batched NTI's embeddings launched {got}, expected {want}")
+        images_held(images, side, f"{method} on batched NTI's embeddings")
+        edits[method] = dict(seconds=edit_s, launches=got, image_means=images.reshape(-1).mean().item())
+        totals = tuple(a + b for a, b in zip(totals, got))
+    line = dict(group=NTI_GROUP, epsilon=epsilon, step0_losses=step0_losses, stops=stops, inner_iterations=inner,
+                frozen_entries=frozen, nti_s=nti_s, nti_launches=counts, edits=edits)
+    return line, totals, (inverted[:P2Z_GROUP], pairs)
+
+
+def grad_groups_f32_step(pipe, latents, pairs):
+    """(A3), f32: one guided step (step ``GRAD_STEP``) of a pix2pix-zero
+    group of P2Z_GROUP against each image's guided step alone, on the
+    loaded UNet cast to f32 for it (and back: bf16 -> f32 -> bf16 is
+    exact), no TF32: each image's gradient, next latent and loss within
+    GRAD_RTOL · max|ref| of its own alone. The group fold's correctness gate
+    at full width (bf16 outputs of a group may differ from solo ones by the
+    batch place)."""
+    from image_editing_framework_torch.methods import p2z
+    from image_editing_framework_torch.methods.base import flat
+
+    g, unet, sched, i = len(pairs), pipe.unet, pipe.scheduler, GRAD_STEP
+    t = int(sched.timesteps[i])
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    unet.float()
+    try:
+        def contexts(prompts):
+            emb, _ = pipe.encode_prompts(prompts)
+            return torch.stack([emb[:g], emb[g:]], dim=1).float()  # (G, 2, 77, D)
+
+        ctx_src, ctx_tgt = contexts([p[0] for p in pairs]), contexts([p[1] for p in pairs])
+        lat = latents.float()
+        src_trajs = lat[None].expand((sched.num_steps,) + tuple(lat.shape))
+        ref = p2z.source_records_group(unet, sched, i, src_trajs, ctx_src)
+        _, grad = p2z.guidance_gradient_group(unet, flat(torch.cat([lat, lat], dim=1)), t, flat(ctx_tgt), ref, None, g)
+        nxt, losses = p2z.guided_step_group(unet, sched, i, lat, ctx_tgt, ref, 7.5, 0.1)
+        held = {}
+        for k in range(g):
+            ref_k = p2z.source_records(unet, sched, i, src_trajs[:, k], ctx_src[k])
+            _, grad_k = p2z.guidance_gradient(unet, torch.cat([lat[k], lat[k]]), t, ctx_tgt[k], ref_k)
+            nxt_k, loss_k = p2z.guided_step(unet, sched, i, lat[k], ctx_tgt[k], ref_k, 7.5, 0.1)
+            for name, a, b in (("gradient", grad[2 * k:2 * k + 2], grad_k), ("next latent", nxt[k], nxt_k),
+                               ("loss", losses[k], loss_k)):
+                held[f"image{k} {name}"] = rel_held(f"the p2z group's f32 guided step, image {k}'s {name}", a, b,
+                                                    GRAD_RTOL)
+    finally:
+        unet.to(pipe.dtype)
+        torch.backends.cudnn.allow_tf32 = tf32
+    return held
+
+
+def phase_grad_groups_path(root, snapshot):
+    """The gradient paths' groups at SD1.5 512² on the snapshot
+    ``phase_checkpoint_path`` wrote, loaded by ``cli.load_pipe("1.5")`` as
+    the service loads it, bf16, on a 10-step schedule (every
+    ``GRAD_STRIDE``-th step): (A1) the service's pix2pix-zero and null-text
+    groups and a pix2pix-zero request alone (``grad_groups_service``), (A2)
+    batched NTI of a group of 3 and the batched edits on its embeddings
+    (``grad_groups_nti_batch``), (A3) the group's f32 guided step against
+    each image's alone (``grad_groups_f32_step``). Returns the launches
+    (forward, dQ, dK/dV) of (A1) and (A2)."""
+    side = MODELS["sd"][2]
+    pipe, load_s = load_snapshot(snapshot)
+    with steps_schedule(pipe, STEPS // GRAD_STRIDE) as sched:
+        service, service_launches = grad_groups_service(pipe, root)
+        torch.cuda.reset_peak_memory_stats()
+        group, group_launches, (latents, pairs) = grad_groups_nti_batch(pipe)
+        group["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        f32_step, f32_s = timed(lambda: grad_groups_f32_step(pipe, latents, pairs))
+    emit("grad_groups_path", model="SD1.5 (random weights, seed 0, from the fp16 snapshot, bf16)", resolution=side,
+         dtype="bfloat16", steps=sched.num_steps, inner_steps=GRAD_INNER_STEPS, load_s=load_s, service=service,
+         nti_batch=group, f32_group_step=dict(step=GRAD_STEP, rtol=GRAD_RTOL, seconds=f32_s, held=f32_step),
+         launches=[a + b for a, b in zip(service_launches, group_launches)], card=card_line())
+    del pipe
+    torch.cuda.empty_cache()
+    return tuple(a + b for a, b in zip(service_launches, group_launches))
+
+
+def phase_xl_p2z_group_path(pipe, starts):
+    """SDXL 1024²'s batched pix2pix-zero: a group of P2Z_GROUP
+    (``XL_P2Z_PAIRS``, from the start latents ``starts``) through
+    ``edit_batch("p2z", ...)`` on ``xl_nti_path``'s 10-step schedule, the
+    XL defaults (references recomputed, the checkpointed UNet by the auto
+    rule), bf16: backpropagation at CFG batch 4 through the checkpointed
+    UNet. Gates: exact launches (a group as one image), finite final
+    latents, 1024² images not constant. Readings: seconds, the peak memory."""
+    import functools
+
+    from image_editing_framework_torch.eval import batched
+    from image_editing_framework_torch.methods import common
+
+    _, name, side, _ = MODELS["xl"]
+    sites = SITES["xl"]
+    checkpointed = isinstance(common.grad_unet(pipe, side // 8), functools.partial)
+    latents = torch.stack([start.to(pipe.dtype) for start in starts])
+    finals, decode = [], batched._decode_pairs
+
+    def recording(p, final):
+        finals.append(final)
+        return decode(p, final)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    batched._decode_pairs = recording
+    try:
+        with steps_schedule(pipe, STEPS // XL_NTI_STRIDE) as sched:
+            images, seconds = timed(lambda: batched.edit_batch("p2z", pipe, XL_P2Z_PAIRS, latents))
+    finally:
+        batched._decode_pairs = decode
+    counts, peak = launch_counts(), torch.cuda.max_memory_allocated() / 2**30
+    want = p2z_launches(sites, sched.num_steps, recompute=True, checkpointed=checkpointed, inverted=False)
+    if counts != want or not checkpointed:
+        raise AssertionError(f"SDXL's p2z group launched (forward, dQ, dK/dV) {counts}, expected {want} (the "
+                             f"checkpointed UNet: {checkpointed})")
+    if len(finals) != 1 or finals[0].shape != (P2Z_GROUP, 2, side // 8, side // 8, 4) or not torch.isfinite(
+            finals[0].float()).all():
+        raise AssertionError(f"SDXL's p2z group's final latents {[tuple(f.shape) for f in finals]}, not finite")
+    images_held(images, side, "SDXL's p2z group")
+    emit("xl_p2z_group_path", model=f"{name} (random weights, seed 0)", resolution=side, dtype="bfloat16",
+         steps=sched.num_steps, group=P2Z_GROUP, cfg_batch=P2Z_BATCH * P2Z_GROUP, checkpointed_unet=checkpointed,
+         recompute_refs=True, seconds=seconds, s_per_image=seconds / P2Z_GROUP, launches=counts,
+         image_means=[float(x.mean()) for x in images.reshape((-1,) + images.shape[-3:])], peak_gib=peak,
+         card=card_line())
+    return counts
+
+
+def phase_launcher_path(root):
+    """The distributed sweep launcher (``tools/launch_distributed_sweep.py``)
+    on the card: LAUNCHER_SHARDS processes at once, each ``--random_weights
+    --num_steps 10 --shard_index i --shard_count 2`` over one mini PIE
+    (``SWEEP_PIE``, 512²) into one ``--exp_path``, a process group of none
+    (its ``--num_processes`` form takes NCCL, which refuses two ranks on one
+    card). Gates: exit codes 0; the shards' event logs partition the items
+    of the default categories as the launcher strides them; every item's
+    ``source``, ``inversion`` and ``edit`` PNGs 512² and not constant; both
+    stats files. Their launches are the processes' own, not counted here."""
+    import os
+
+    from image_editing_framework_torch.data.pie import DEFAULT_CATEGORIES, PIE
+
+    side = MODELS["sd"][2]
+    pie = write_mini_pie(os.path.join(root, "launcher_PIE"), side)
+    work = [it.key for c in DEFAULT_CATEGORIES for it in PIE(pie, c).items]
+    exp = os.path.join(root, "launcher_exp")
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "image_editing_framework_torch.tools.launch_distributed_sweep", "--random_weights",
+           "--num_steps", str(STEPS // GRAD_STRIDE), "--dataset_path", pie, "--exp_path", exp,
+           "--shard_count", str(LAUNCHER_SHARDS)]
+    logs = [open(os.path.join(root, f"launcher{i}.log"), "w") for i in range(LAUNCHER_SHARDS)]
+    start = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--shard_index", str(i)], cwd=here, stdout=logs[i], stderr=subprocess.STDOUT)
+             for i in range(LAUNCHER_SHARDS)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, LAUNCHER_TIMEOUT_S - (time.perf_counter() - start)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    seconds, codes = time.perf_counter() - start, [p.returncode for p in procs]
+    if any(codes):
+        tails = "".join(f"--- shard {i}\n" + open(os.path.join(root, f"launcher{i}.log")).read()[-3000:]
+                        for i in range(LAUNCHER_SHARDS))
+        raise AssertionError(f"the launcher's shards exited {codes}\n{tails}")
+    shards, stats = [], []
+    for i in range(LAUNCHER_SHARDS):
+        with open(os.path.join(exp, f"events_p2p_{i}.jsonl")) as f:
+            shards.append([json.loads(line)["key"] for line in f if line.strip()])
+        with open(os.path.join(exp, f"sweep_stats_p2p_{i}.json")) as f:
+            stats.append(json.load(f))
+    if sorted(k for keys in shards for k in keys) != sorted(work) or any(
+            sorted(keys) != sorted(work[i::LAUNCHER_SHARDS]) for i, keys in enumerate(shards)):
+        raise AssertionError(f"the launcher's shards {shards} do not partition the items {work} by stride")
+    for key in work:
+        for f in ("source", "inversion", "edit"):
+            png_of(os.path.join(exp, key), f, side, f"the launcher's {key}/")
+    emit("launcher_path", processes=LAUNCHER_SHARDS, steps=STEPS // GRAD_STRIDE, items=len(work), shards=shards,
+         exit_codes=codes, seconds=seconds, images_done=[s["images_done"] for s in stats],
+         mean_s_per_image=[s["mean_s_per_image"] for s in stats],
+         note="two processes share the one card; the process-group form (--num_processes, NCCL) needs a card "
+              "per process", card=card_line())
+
+
 # the runway's UNet forwards per image of each method (one launch at every
 # self-attention site of each) and its backwards (p2z's guided steps): P2P,
 # MasaCtrl and PnP denoise once; p2z records the source (pass 1), then each
 # guided step runs a forward with its backward and a forward on the updated
 # latent
 VALIDATION_FORWARDS = {"p2p": 1, "masactrl": 1, "pnp": 1, "p2z": 3}
+# the runway's schedule: a 10-step one since the gradient paths' groups
+# joined the script (a cut in depth: its gates count per step)
+VALIDATION_STEPS = 10
 VALIDATION_BACKWARDS = {"p2p": 0, "masactrl": 0, "pnp": 0, "p2z": 1}
 TOWER_RTOL = 1e-4  # the card's CLIP score and LPIPS against the same towers on the CPU, f32, relative
 CLIP_SEED = 5
@@ -2140,7 +2698,7 @@ def tower_err(card, cpu):
 def phase_validation_path(root, snapshot):
     """The validation runway (``eval/validate.py main``, its own entry
     point) on the SD1.5 snapshot ``phase_checkpoint_path`` wrote into
-    ``root``, bf16, 512², 50 steps, all four methods, the synthesized source
+    ``root``, bf16, 512², ``VALIDATION_STEPS`` steps, all four methods, the synthesized source
     image (``--source_image synth``), DDIM inversion, with a seeded random
     CLIP checkpoint in ``CLIPScore``'s shapes (fp16, ~0.42 GB) and a seeded
     random LPIPS file (VGG16 and the heads, f32, ~59 MB) written here.
@@ -2160,7 +2718,6 @@ def phase_validation_path(root, snapshot):
     from image_editing_framework_torch.eval.lpips import LPIPS
     from image_editing_framework_torch.eval.metrics import CLIPScore
     from image_editing_framework_torch.tools import golden_check
-    from image_editing_framework_torch.utils.images import decode_png
 
     side, sites = MODELS["sd"][2], SITES["sd"]
     clip_dir, lpips_path = os.path.join(root, "clip"), os.path.join(root, "lpips.safetensors")
@@ -2172,7 +2729,8 @@ def phase_validation_path(root, snapshot):
     def runway(out, *more):
         reset_launch_counts()
         _, loads, seconds = timed_loads(lambda: validate.main(
-            ["--path", snapshot, "--sd_version", "1.5", "--resolution", str(side), "--source_image", "synth",
+            ["--path", snapshot, "--sd_version", "1.5", "--num_steps", str(VALIDATION_STEPS), "--resolution",
+             str(side), "--source_image", "synth",
              "--source_prompt", source, "--target_prompt", target, "--clip_checkpoint", clip_dir, "--lpips_weights",
              lpips_path, "--out", out, *more]))
         counts = launch_counts()
@@ -2181,20 +2739,15 @@ def phase_validation_path(root, snapshot):
             return json.load(f), counts, seconds, sum(s for _, _, s in loads)
 
     def png(out, method, name):
-        with open(os.path.join(out, "1.5", method, name + ".png"), "rb") as f:
-            img = decode_png(f.read())
-        if img is None or img.shape != (side, side, 3) or img.dtype != np.uint8 or img.std() == 0:
-            raise AssertionError(f"validation {method}/{name}.png: {None if img is None else img.shape}, constant or "
-                                 f"misshapen")
-        return img
+        return png_of(os.path.join(out, "1.5", method), name, side, f"validation {method}/")
 
     out = os.path.join(root, "validation")
     report, counts, run_s, load_s = runway(out)
     methods = validate.METHODS
-    expected = validation_launches(sites, STEPS, methods, real=True)
+    expected = validation_launches(sites, VALIDATION_STEPS, methods, real=True)
     if counts != expected:
         raise AssertionError(f"the runway launched (forward, dQ, dK/dV) {counts} times, expected {expected}")
-    if tuple(report["methods"]) != methods or report["num_steps"] != STEPS or report["backend"] != "cuda":
+    if tuple(report["methods"]) != methods or report["num_steps"] != VALIDATION_STEPS or report["backend"] != "cuda":
         raise AssertionError(f"report.json: methods {list(report['methods'])}, {report['num_steps']} steps, backend "
                              f"{report['backend']}")
     hashes = ("syn_source_sha256", "syn_edit_sha256", "real_inversion_sha256", "real_edit_sha256")
@@ -2251,7 +2804,7 @@ def phase_validation_path(root, snapshot):
     torch.cuda.empty_cache()
     if golden not in (0, 1):
         raise AssertionError(f"the golden check refused the runway's report (exit {golden})")
-    if rerun_counts != validation_launches(sites, STEPS, ("p2p",), real=True):
+    if rerun_counts != validation_launches(sites, VALIDATION_STEPS, ("p2p",), real=True):
         raise AssertionError(f"the P2P rerun launched (forward, dQ, dK/dV) {rerun_counts} times")
     with open(os.path.join(out2, "report.json")) as f:
         report2 = json.load(f)
@@ -2259,7 +2812,7 @@ def phase_validation_path(root, snapshot):
     if (golden == 0) != all(rerun_same.values()):
         raise AssertionError(f"the golden check exited {golden} on hashes {rerun_same}")
     emit("validation_path", model="SD1.5 (random weights, seed 0, from the fp16 snapshot, bf16)", resolution=side,
-         dtype="bfloat16", steps=STEPS, methods=list(methods), write_s=write_s, clip_gb=clip_bytes / 1e9,
+         dtype="bfloat16", steps=VALIDATION_STEPS, methods=list(methods), write_s=write_s, clip_gb=clip_bytes / 1e9,
          lpips_mb=lpips_bytes / 1e6, run_s=run_s, load_s=load_s,
          syn_s={m: e["syn_elapsed_s"] for m, e in report["methods"].items()},
          real_s={m: e["real_elapsed_s"] for m, e in report["methods"].items()},
@@ -2569,7 +3122,7 @@ def phase_nti_path(model, pipe):
          image_s=invert_s + edit_s, nti_share=marks["nti_s"] / (invert_s + edit_s), inner_iterations=j,
          nti_launches=nti_counts, launches=counts, uncond_moved=float((uncond_seq[-1] - uncond_seq[0]).abs().max()),
          peak_gib=torch.cuda.max_memory_allocated() / 2**30, image_mean=float(images.mean()), card=card_line())
-    return counts, (last, uncond_seq)
+    return counts, (last, uncond_seq, traj)
 
 
 def profiling_check(forward, sites):
@@ -2609,7 +3162,7 @@ def phase_profile(model, pipe, lat4, ctx, added):
     for batch, lat, c, add in ((4, lat4, ctx, added), (1, lat4[:1], ctx[2:3], added1)):
         forward = lambda: pipe.unet_apply(lat, 501, c, None, add)  # noqa: E731
         wall_ms = cuda_ms(forward, min_ms=500.0)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # every reading is of kernels
             for _ in range(PROFILE_REPS):
                 forward()
             torch.cuda.synchronize()
@@ -2732,12 +3285,27 @@ def phase_pnp_path(model, pipe, inversion):
 
 # the guided step phase_p2z_path times alone
 P2Z_PROBE_STEP = 25
-# SDXL's p2z edit on the DDIM inversion takes every 5th step of the 50 (10
+# The p2z edits on the DDIM inversion take every 5th step of the 50 (10
 # guided steps from the inversion trajectory's latent at that schedule's
-# first timestep), and its edit on the NTI path's embeddings that path's 10
-# steps (XL_NTI_STRIDE): depth cuts that keep the script inside its time
-# limit on slower hosts
+# first timestep; SD1.5's since the gradient paths' groups joined the
+# script), and the edits on the NTI path's embeddings the
+# same steps (SD1.5: ``strided_nti``; SDXL: that path's own 10,
+# XL_NTI_STRIDE): depth cuts that keep the script inside its time limit on
+# slower hosts
 XL_P2Z_NTI_STRIDE = 5
+
+
+def strided_nti(nti, stride):
+    """(start latent, embeddings, steps) of an edit on ``phase_nti_path``'s
+    inversion (last latent, embeddings, trajectory) over every
+    ``stride``-th step of its 50: the trajectory's entry at that schedule's
+    first timestep and the embeddings of its steps (the k-th is the full
+    schedule's step stride * k + stride - 1). An NTI run already on a cut
+    schedule (SDXL's) gives its own."""
+    last, seq, traj = nti
+    if seq.shape[0] < STEPS:
+        return last, seq, seq.shape[0]
+    return traj[STEPS + 1 - stride], seq[stride - 1::stride], STEPS // stride
 
 
 def phase_p2z_path(model, pipe, nti):
@@ -2747,9 +3315,9 @@ def phase_p2z_path(model, pipe, nti):
     in pass 1; SDXL: recomputed from pass 1's trajectory, the checkpointed
     UNet by the auto rule at latent side 128); then the edit alone on
     ``phase_nti_path``'s inversion and embeddings (their swap in both
-    passes, over its steps: SDXL's every ``XL_NTI_STRIDE``-th). SDXL's
-    DDIM run edits over every ``XL_P2Z_NTI_STRIDE``-th step of its 50-step
-    inversion. Per run: seconds of pass 1, pass 2 and the decodes, exact
+    passes, over every ``XL_P2Z_NTI_STRIDE``-th step: ``strided_nti``).
+    The DDIM run edits over every ``XL_P2Z_NTI_STRIDE``-th step of its
+    50-step inversion. Per run: seconds of pass 1, pass 2 and the decodes, exact
     launch counts, the loss of the first and last guided step. Then one
     guided step (step ``P2Z_PROBE_STEP`` from the inverted latent, SDXL's
     recomputed references included) timed alone and under torch.profiler,
@@ -2800,10 +3368,10 @@ def phase_p2z_path(model, pipe, nti):
         # every stride-th step of the schedule: its k-th step is the full
         # schedule's step stride * k + stride - 1, whose latent the inversion
         # trajectory holds at index STEPS - (stride - 1)
-        stride = XL_P2Z_NTI_STRIDE if xl else 1
+        stride = XL_P2Z_NTI_STRIDE
         for label, start, uncond, steps in (
                 ("ddim", last if stride == 1 else ddim_traj[STEPS + 1 - stride], None, STEPS // stride),
-                ("nti", nti[0], nti[1], nti[1].shape[0])):
+                ("nti", *strided_nti(nti, stride))):
             marks.clear()
             torch.cuda.reset_peak_memory_stats()
             reset_launch_counts()
@@ -2866,13 +3434,19 @@ def phase_p2z_path(model, pipe, nti):
     x_in = torch.cat([lat, lat])
     gradient = lambda: p2z.guidance_gradient(unet, x_in, t, ctx, ref, added)  # noqa: E731
     forward = lambda: pipe.unet_apply(x_in, t, ctx, None, added)  # noqa: E731
+    t0 = time.perf_counter()
     with torch.no_grad():
         step_ms, gradient_ms, forward_ms = (cuda_ms(fn, min_ms=500.0, warmup=1) for fn in (step, gradient, forward))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t1 = time.perf_counter()
+    # the card's activity alone: every reading below is of kernels, and the
+    # host ops' events made key_averages take about a minute at SDXL
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILE_REPS):
             step()
         torch.cuda.synchronize()
+    t2 = time.perf_counter()
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    probe_s = dict(timing=t1 - t0, profiled_steps=t2 - t1, key_averages=time.perf_counter() - t2)
     busy = sum(e.self_device_time_total for e in kernels) / PROFILE_REPS / 1e3
     if busy == 0:
         raise AssertionError("the profiler recorded no device time")
@@ -2885,7 +3459,7 @@ def phase_p2z_path(model, pipe, nti):
          launches=sum(e.count for e in kernels) / PROFILE_REPS, gradient_wall_ms=gradient_ms,
          forward_cfg2_wall_ms=forward_ms, backward_share_est=(gradient_ms - forward_ms) / step_ms,
          flash_fwd_ms=kernel_ms("flash_fwd"), flash_bwd_dq_ms=kernel_ms("bwd_dq"), flash_bwd_dkv_ms=kernel_ms("bwd_dkv"),
-         flash_bwd_share_of_busy=(kernel_ms("bwd_dq") + kernel_ms("bwd_dkv")) / busy,
+         flash_bwd_share_of_busy=(kernel_ms("bwd_dq") + kernel_ms("bwd_dkv")) / busy, probe_s=probe_s,
          top=[[e.key[:60], e.self_device_time_total / PROFILE_REPS / 1e3] for e in top], card=card_line())
     return {label: run["launches"] for label, run in runs.items()}, inv_counts
 
@@ -3111,11 +3685,12 @@ def cp_kernel_checks(mesh, mesh2d, world, device):
     return dict(forward=rows, backward=grads, times=times)
 
 
-def cp_unet_forward(mesh, device, tp_mesh=None):
+def cp_unet_forward(mesh, device, tp_mesh=None, grads=False):
     """(b): one SDXL 1024² CFG-4 UNet forward, f32, seeded random weights
     built in each rank, with the ring and with Ulysses against the same
     forward without CP on the same rank; the ranks' weights equal by an
-    all-gathered checksum; exact launches. With ``tp_mesh``, then (d1) on
+    all-gathered checksum; exact launches. With ``grads``, then (e1) on the
+    same module (``cp_unet_gradients``). With ``tp_mesh``, then (d1) on
     the same module: split over "tensor", the same forward
     (``tp_unet_forward``), under ``res["tp"]``."""
     from image_editing_framework_torch.models import configs
@@ -3156,6 +3731,8 @@ def cp_unet_forward(mesh, device, tp_mesh=None):
             if got != (want, 0, 0) or not err <= tol:
                 raise AssertionError(f"the SDXL UNet with {mode} CP: {res[mode]}, launches {got}")
     res["checksum"] = checksum.tolist()
+    if grads:
+        res["grad"] = cp_unet_gradients(unet, mesh, lat, ctx, added)
     if tp_mesh is not None:
         res["tp"] = tp_unet_forward(unet, tp_mesh, lat, 501, ctx, added, ref)
     del unet, ref
@@ -3169,7 +3746,8 @@ def cp_main_path(mesh, device):
     50: its gates, launches per forward, finiteness and equal images on both
     ranks, keep their meaning at any depth): DDIM inversion through
     ``cli.invert``, the P2P replace edit at CFG batch 4 and the decode
-    through ``cli.run_method``; exact launches."""
+    through ``cli.run_method``; exact launches. Returns (the line, (the
+    pipe, the inverted latent, the inversion trajectory) for (e))."""
     import hashlib
 
     from image_editing_framework_torch import cli
@@ -3201,10 +3779,222 @@ def cp_main_path(mesh, device):
             raise AssertionError(f"the main path under the ring gave a constant or misshapen image {img.shape}")
     if not torch.isfinite(traj.float()).all():
         raise AssertionError("the inversion under the ring gave non-finite latents")
-    return dict(steps=steps, setup_s=setup_s, invert_s=invert_s, edit_and_decode_s=edit_s, image_s=invert_s + edit_s,
+    line = dict(steps=steps, setup_s=setup_s, invert_s=invert_s, edit_and_decode_s=edit_s, image_s=invert_s + edit_s,
                 launches=counts[0], inversion_launches=inv_counts[0], launches_per_unet_forward=per_forward,
                 image_sha256=[hashlib.sha256(img.tobytes()).hexdigest() for img in images],
                 image_means=[float(img.mean()) for img in images], peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return line, (pipe, last, traj)
+
+
+CP_NTI_STEPS = 5  # (e2): every 10th step of the 50, from (c)'s 10-step trajectory
+CP_NTI_EPSILON = 20.0  # (e2)'s: its steps' first losses ran 8.0 and 18.0 at steps 0 and 2, 22.0-24.5 at the others
+TP_NTI_EPSILON = 1.8  # (d4)'s: its step losses ran 0.05-1.37 at steps 0-3, 2.45-7.85 after
+
+
+def cp_unet_gradients(unet, mesh, lat, ctx, added, min_seq=CP_MIN_SEQ, big_sites=CP_BIG_SITES):
+    """(e1), f32: the gradients of a fixed random projection of the UNet's
+    output with respect to its input latent and its context, through the
+    checkpointed UNet (``remat=True``), at NTI's batch 1 and p2z's CFG batch
+    2 (CP_GRAD_BATCHES), under the ring against the same unsharded in this
+    rank: within GRAD_RTOL · max|ref|; exact launches (every site's forward
+    twice, the checkpointed blocks' again in the backward pass, and the
+    backward at every site, a ring site's n times); digests for the ranks
+    to compare. ``big_sites``: the sites at ``min_seq`` tokens or more."""
+    device = lat.device
+    world = torch.distributed.get_world_size(mesh.get_group("data"))
+    sites = unet.config.num_transformer_blocks
+    per_forward = sites - big_sites + big_sites * world
+    proj = torch.randn(lat.shape, device=device, generator=torch.Generator(device=device).manual_seed(19))
+    res = {}
+    for b in CP_GRAD_BATCHES:
+        extra = None if added is None else {k: v[:b] for k, v in added.items()}
+
+        def gradients():
+            x, c = (t[:b].clone().requires_grad_(True) for t in (lat, ctx))
+            with torch.enable_grad():
+                eps = unet(x, 501, c, None, extra, remat=True)[0]
+                return torch.autograd.grad((eps.float() * proj[:b]).sum(), (x, c))
+
+        ref = gradients()
+        unet.set_context_parallel(mesh, min_seq, "ring")
+        reset_launch_counts()
+        try:
+            got, seconds = seconds_of(gradients, device)
+        finally:
+            unet.set_context_parallel(None)
+        counts, want = tp_counts(device), tp_want(device, 2 * per_forward, per_forward, per_forward)
+        if counts != want:
+            raise AssertionError(f"cp the gradients at batch {b} launched (forward, dQ, dK/dV) {counts}, expected "
+                                 f"{want}")
+        res[f"batch{b}"] = dict(
+            latent=rel_held(f"cp the latent's gradient at batch {b}", got[0], ref[0], GRAD_RTOL),
+            context=rel_held(f"cp the context's gradient at batch {b}", got[1], ref[1], GRAD_RTOL),
+            launches=list(counts), seconds=seconds, digest=tp_digest(torch.cat([g.flatten() for g in got])))
+    return res
+
+
+def trajectory_at(traj, full, short):
+    """The entries of ``full``'s inversion trajectory (S+1, ...) at
+    ``short``'s inversion timesteps: its first (the clean latent) and, for
+    each step of ``short``, the one after ``full``'s step at that
+    timestep."""
+    from image_editing_framework_torch.core.scheduler import inversion_timestep
+
+    at = {inversion_timestep(full, j): j + 1 for j in range(full.num_steps)}
+    return traj[[0] + [at[inversion_timestep(short, m)] for m in range(short.num_steps)]]
+
+
+def ring_grad_paths(pipe, side, last, traj, epsilon, per_forward, nti_grad_sites, p2z_grad_sites, remat=None):
+    """(e2) and (e3): NTI and pix2pix-zero under the ring on (c)'s pipe
+    (``side``² images),
+    its 10-step schedule and its inversion, bf16. (e2): ``nti_batch`` of one
+    image over CP_NTI_STEPS steps (``trajectory_at`` of (c)'s trajectory),
+    2 inner iterations a step at ``epsilon``, the checkpointed UNet by the
+    auto rule (``remat`` forces it). (e3): ``cli.run_method("p2z", ...)``
+    from (c)'s inverted latent. Gates: exact launches per rank (a UNet
+    forward ``per_forward``, NTI's backward ``nti_grad_sites``, p2z's
+    ``p2z_grad_sites``); finite embeddings and latents; non-constant
+    images. The ranks' stops, embeddings and images are compared by the
+    caller (their digests)."""
+    import functools
+    import hashlib
+
+    from image_editing_framework_torch import cli
+    from image_editing_framework_torch.core.config import P2ZConfig, SamplerConfig
+    from image_editing_framework_torch.eval import batched
+    from image_editing_framework_torch.methods import common
+
+    device, full = last.device, pipe.scheduler
+    checkpointed = isinstance(common.grad_unet(pipe, traj.shape[-3], remat), functools.partial)
+    with steps_schedule(pipe, CP_NTI_STEPS) as short:
+        trajectory = trajectory_at(traj, full, short)
+        cfg = dataclasses.replace(cli.nti_config_for("p2p", pipe), num_inner_steps=GRAD_INNER_STEPS,
+                                  epsilon=epsilon, remat=remat)
+        reset_launch_counts()
+        with nti_recorded() as seen:
+            (seqs, stops), nti_s = seconds_of(
+                lambda: batched.nti_batch(pipe, trajectory[None], PROMPTS[:1], cfg, return_stops=True), device)
+    counts, inner = tp_counts(device), sum(max(step) for step in stops)
+    want = tp_want(device, *nti_launches(per_forward, nti_grad_sites, CP_NTI_STEPS, inner, checkpointed))
+    if counts != want or not torch.isfinite(seqs).all():
+        raise AssertionError(f"cp NTI under the ring launched (forward, dQ, dK/dV) {counts} over {inner} inner "
+                             f"iterations, expected {want} (or its embeddings are not finite)")
+    losses = [[float(v) for v in loss.flatten().tolist()] for loss in seen["losses"]]
+    nti_line = dict(steps=CP_NTI_STEPS, epsilon=epsilon, stops=[step[0] for step in stops], inner_iterations=inner,
+                    losses=losses, launches=list(counts), seconds=nti_s, digest=tp_digest(seqs),
+                    checkpointed_unet=checkpointed)
+
+    finals, decode = [], pipe.latent2image
+
+    def recording(lat, **kw):
+        finals.append(lat)
+        return decode(lat, **kw)
+
+    sampler = SamplerConfig(num_inference_steps=full.num_steps, height=side, width=side)
+    config = P2ZConfig(recompute_refs=pipe.model_type == "xl", remat_grad=remat)
+    pipe.latent2image = recording
+    reset_launch_counts()
+    try:
+        images, p2z_s = seconds_of(lambda: cli.run_method("p2z", pipe, PROMPTS, last, sampler,
+                                                          method_kwargs={"config": config}), device)
+    finally:
+        del pipe.latent2image
+    counts = tp_counts(device)
+    want = tp_want(device, *p2z_launches(per_forward, full.num_steps, config.recompute_refs, checkpointed,
+                                         inverted=False, grad_sites=p2z_grad_sites))
+    if counts != want or not all(torch.isfinite(f.float()).all() for f in finals):
+        raise AssertionError(f"cp p2z under the ring launched (forward, dQ, dK/dV) {counts}, expected {want} (or "
+                             f"its latents are not finite)")
+    for img in images:
+        if img.shape != (side, side, 3) or img.dtype != np.uint8 or img.std() == 0:
+            raise AssertionError(f"cp p2z under the ring gave a constant or misshapen image {img.shape}")
+    p2z_line = dict(steps=full.num_steps, launches=list(counts), seconds=p2z_s, recompute_refs=config.recompute_refs,
+                    checkpointed_unet=checkpointed,
+                    image_sha256=[hashlib.sha256(img.tobytes()).hexdigest() for img in images],
+                    image_means=[float(img.mean()) for img in images])
+    return dict(nti=nti_line, p2z=p2z_line)
+
+
+def tp_p2z_step(pipe, latent_side, inputs=None):
+    """(d5) f32: one pix2pix-zero guided step's loss and its gradient with
+    respect to the CFG pair's latent (``p2z.guidance_gradient``: every
+    recorded cross map's heads gathered under autograd). Called first
+    unsharded (``inputs`` None), it makes the inputs (a seeded pair whose
+    halves differ, the target context, a source forward's references);
+    called again under tensor parallelism on the same inputs. Returns
+    (inputs, loss, gradient, launches, seconds)."""
+    from image_editing_framework_torch.methods import p2z
+    from image_editing_framework_torch.methods.common import prepare_conditioning
+    from image_editing_framework_torch.ops.controls import P2ZStep
+
+    device = pipe.device
+    if inputs is None:
+        gen = torch.Generator(device=device).manual_seed(20)
+        x, src = (torch.randn(P2Z_BATCH, latent_side, latent_side, 4, device=device, generator=gen) for _ in range(2))
+        t = int(pipe.scheduler.timesteps[TP_STEP])
+        with torch.no_grad():
+            ctx_src, _ = prepare_conditioning(pipe, PROMPTS[:1], latent_side, latent_side)
+            ctx, _ = prepare_conditioning(pipe, PROMPTS[1:], latent_side, latent_side)
+            _, ref = pipe.unet(src, t, ctx_src, P2ZStep())
+        inputs = dict(x=x, t=t, ctx=ctx, ref=ref)
+    reset_launch_counts()
+    (loss, grad), seconds = seconds_of(
+        lambda: p2z.guidance_gradient(pipe.unet, inputs["x"], inputs["t"], inputs["ctx"], inputs["ref"]), device)
+    return inputs, loss, grad, tp_counts(device), seconds
+
+
+def tp_grad_paths(pipe, side, epsilon=TP_NTI_EPSILON):
+    """(d4) and (d5): NTI and pix2pix-zero under tensor parallelism on (d)'s
+    pipe (bf16 on the card, f32 in the CPU rehearsal), on a 10-step
+    schedule: the DDIM inversion of a seeded ``side``² image
+    (``cli.invert``), ``nti_batch`` of it (``GRAD_INNER_STEPS`` inner
+    iterations a step at ``epsilon``; NTI's stop in lockstep over the
+    tensor mesh), ``cli.run_method("p2z", ...)`` from the inverted latent.
+    Gates: exact launches (one a site, on H/n heads), finite embeddings and
+    latents, non-constant images; the ranks' digests and stops are compared
+    by ``tp_line``."""
+    import hashlib
+
+    from image_editing_framework_torch import cli
+    from image_editing_framework_torch.core.config import NTIConfig, SamplerConfig
+    from image_editing_framework_torch.eval import batched
+
+    device, sites = pipe.device, pipe.unet.config.num_transformer_blocks
+    steps = STEPS // GRAD_STRIDE
+    image = (np.random.RandomState(21).rand(side, side, 3) * 255).astype(np.uint8)
+    with steps_schedule(pipe, steps):
+        (last, traj, _), invert_s = seconds_of(lambda: cli.invert(pipe, image, PROMPTS[0], "ddim", "p2p"), device)
+        cfg = NTIConfig(num_inner_steps=GRAD_INNER_STEPS, epsilon=epsilon)
+        reset_launch_counts()
+        with nti_recorded() as seen:
+            (seqs, stops), nti_s = seconds_of(
+                lambda: batched.nti_batch(pipe, traj[None], PROMPTS[:1], cfg, return_stops=True), device)
+        counts, inner = tp_counts(device), sum(max(step) for step in stops)
+        want = tp_want(device, *nti_launches(sites, sites - 1, steps, inner))
+        if counts != want or not torch.isfinite(seqs).all():
+            raise AssertionError(f"tp NTI launched (forward, dQ, dK/dV) {counts} over {inner} inner iterations, "
+                                 f"expected {want} (or its embeddings are not finite)")
+        nti_line = dict(steps=steps, epsilon=epsilon, stops=[s[0] for s in stops], inner_iterations=inner,
+                        losses=[[float(v) for v in loss.flatten().tolist()] for loss in seen["losses"]],
+                        launches=list(counts), seconds=nti_s, invert_s=invert_s, digest=tp_digest(seqs))
+        finals, decode = [], pipe.latent2image
+        pipe.latent2image = lambda lat, **kw: finals.append(lat) or decode(lat, **kw)
+        reset_launch_counts()
+        try:
+            images, p2z_s = seconds_of(lambda: cli.run_method(
+                "p2z", pipe, PROMPTS, last, SamplerConfig(num_inference_steps=steps, height=side, width=side)), device)
+        finally:
+            del pipe.latent2image
+    counts, want = tp_counts(device), tp_want(device, *p2z_launches(sites, steps, inverted=False))
+    if counts != want or not all(torch.isfinite(f.float()).all() for f in finals):
+        raise AssertionError(f"tp p2z launched (forward, dQ, dK/dV) {counts}, expected {want} (or its latents are not "
+                             f"finite)")
+    for img in images:
+        if img.shape != (side, side, 3) or img.dtype != np.uint8 or img.std() == 0:
+            raise AssertionError(f"tp p2z gave a constant or misshapen image {img.shape}")
+    return dict(nti=nti_line, p2z=dict(steps=steps, launches=list(counts), seconds=p2z_s,
+                                       digest=hashlib.sha256(b"".join(img.tobytes() for img in images)).hexdigest(),
+                                       image_means=[float(img.mean()) for img in images]))
 
 
 TP_RTOL = 1e-3  # each tp check against the same work unsharded in the rank, of max|ref|
@@ -3233,18 +4023,17 @@ def tp_digest(x):
     return hashlib.sha256(x.detach().float().cpu().contiguous().numpy().tobytes()).hexdigest()
 
 
-def tp_synchronize(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-
-
-def tp_held(name, got, ref, rtol):
+def rel_held(name, got, ref, rtol):
     """{max_abs_err, limit}: ``got`` within rtol · max|ref| of ``ref``, both
     finite, or fail naming ``name``."""
     err, limit = (got.float() - ref.float()).abs().max().item(), rtol * ref.float().abs().max().item()
     if not (err <= limit and torch.isfinite(got).all()):
-        raise AssertionError(f"tp {name}: max |err| {err} over the limit {limit} (or not finite)")
+        raise AssertionError(f"{name}: max |err| {err} over the limit {limit} (or not finite)")
     return dict(max_abs_err=err, limit=limit)
+
+
+def tp_held(name, got, ref, rtol):
+    return rel_held(f"tp {name}", got, ref, rtol)
 
 
 def tp_unet_forward(unet, mesh, lat, t, ctx, added, ref):
@@ -3254,12 +4043,12 @@ def tp_unet_forward(unet, mesh, lat, t, ctx, added, ref):
     from image_editing_framework_torch.parallel import sharding
 
     sharding.shard_params(unet, mesh)
-    tp_synchronize(lat.device)
+    sync(lat.device)
     t0 = time.perf_counter()
     reset_launch_counts()
     with torch.no_grad():
         out = unet(lat, t, ctx, None, added)[0]
-    tp_synchronize(lat.device)
+    sync(lat.device)
     seconds, got = time.perf_counter() - t0, tp_counts(lat.device)
     want = tp_want(lat.device, unet.config.num_transformer_blocks, 0, 0)
     if got != want:
@@ -3291,11 +4080,11 @@ def tp_control_forward(pipe, mesh, side, latent_side):
         sharding.shard_params(pipe.unet, mesh)
         sharding.shard_params(pipe.text_encoder, mesh)
         ctx1, _ = prepare_conditioning(pipe, PROMPTS, side, side)
-        tp_synchronize(device)
+        sync(device)
         t0 = time.perf_counter()
         reset_launch_counts()
         eps1, rec1 = pipe.unet(lat, t, ctx0, ctrl)  # the unsharded context: the forward's own error
-        tp_synchronize(device)
+        sync(device)
         seconds, got = time.perf_counter() - t0, tp_counts(device)
     want = tp_want(device, pipe.unet.config.num_transformer_blocks, 0, 0)
     if got != want or sorted(rec1) != sorted(rec0) or not rec0:
@@ -3351,11 +4140,11 @@ def tp_train_step(unet, mesh, latent_side):
             raise AssertionError(f"tp the planted fault {fault!r} passed the q/k/v gradients' gate: {groups}")
     for p in unet.parameters():
         p.grad = None
-    tp_synchronize(device)
+    sync(device)
     t0 = time.perf_counter()
     reset_launch_counts()
     loss = step(lat, 501, ctx, target)
-    tp_synchronize(device)
+    sync(device)
     seconds, got = time.perf_counter() - t0, tp_counts(device)
     sites = unet.config.num_transformer_blocks
     want = tp_want(device, sites, sites, sites)
@@ -3444,8 +4233,11 @@ def tp_grad_group(unet, name):
 
 
 def tp_parts(mesh, device, tiny=False):
-    """(d2) and (d3) on SD1.5 at 512², f32 (``tiny``: the tiny pipeline at
-    32², the CPU rehearsal), seeded random weights built in each rank.
+    """(d2), the f32 p2z guided step's gradient (``tp_p2z_step``, its
+    unsharded reference taken before the split), (d4) and (d5)
+    (``tp_grad_paths``, on the split pipe cast to bf16) and (d3) on SD1.5 at
+    512², f32 (``tiny``: the tiny pipeline at 32², the CPU rehearsal, f32
+    throughout), seeded random weights built in each rank.
     cuDNN's deterministic algorithms, so that the ranks' replicated
     gradients, and the weights after the update, are bitwise equal."""
     from image_editing_framework_torch.models import configs
@@ -3461,7 +4253,23 @@ def tp_parts(mesh, device, tiny=False):
         else:
             pipe = random_pipeline(MODELS["sd"][0], num_steps=STEPS, dtype=torch.float32, seed=0, device=device)
             side, latent_side, cfg = MODELS["sd"][2], MODELS["sd"][2] // 8, configs.SD15_UNET
+        inputs, ref_loss, ref_grad, _, _ = tp_p2z_step(pipe, latent_side)
         res = dict(control=tp_control_forward(pipe, mesh, side, latent_side))
+        _, loss, grad, counts, seconds = tp_p2z_step(pipe, latent_side, inputs)
+        sites = pipe.unet.config.num_transformer_blocks
+        want = tp_want(device, sites, sites, sites)
+        if counts != want:
+            raise AssertionError(f"tp the p2z guided step launched (forward, dQ, dK/dV) {counts}, expected {want}")
+        res["p2z_step"] = dict(gradient=tp_held("p2z guided step gradient", grad, ref_grad, TP_RTOL),
+                               loss_held=tp_held("p2z guided step loss", loss, ref_loss, TP_RTOL),
+                               launches=list(counts),
+                               expected_launches=list(want), seconds=seconds, digest=tp_digest(grad))
+        del inputs, ref_grad, grad
+        if not tiny:  # (d4) and (d5) in bf16 on the split modules, cast in place
+            for module in (pipe.unet, pipe.vae, pipe.text_encoder):
+                module.to(torch.bfloat16)
+            pipe.dtype = torch.bfloat16
+        res.update(tp_grad_paths(pipe, side))
         del pipe
         res["train"] = tp_train_step(_build(UNet2DCondition, cfg, device, torch.float32, 1), mesh, latent_side)
     finally:
@@ -3471,13 +4279,15 @@ def tp_parts(mesh, device, tiny=False):
     return res
 
 
-def cp_rank(rank, world, store, out_dir, parts="abcd"):
+def cp_rank(rank, world, store, out_dir, parts="abcde"):
     """One rank of a cp_path group (its own process): join the group over
     gloo on the one card, or over NCCL with a card per rank; run (a), and on
-    2 ranks also (b), (c) and (d) (those of ``parts`` asked for; (d),
+    2 ranks also (b), (c), (d) and (e) (those of ``parts`` asked for; (d),
     tensor parallelism, on a data 1 x tensor 2 mesh of the same ranks, its
-    first check on (b)'s module when (b) runs); write ``rank<r>.json``.
-    Returns the exit code."""
+    first check on (b)'s module when (b) runs; (e), NTI and pix2pix-zero
+    under the ring, its f32 gradients (e1) on (b)'s module and its bf16 runs
+    (e2, e3) on (c)'s pipe and inversion); write ``rank<r>.json``. Returns
+    the exit code."""
     import datetime
 
     from image_editing_framework_torch.parallel import mesh as mesh_lib
@@ -3488,6 +4298,9 @@ def cp_rank(rank, world, store, out_dir, parts="abcd"):
     torch.cuda.set_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's deterministic algorithms: the ranks run the layers outside the
+    # ring on the same inputs, and their gradients must be bitwise equal
+    torch.backends.cudnn.deterministic = True
     mesh_lib.initialize_distributed(f"file://{store}", world, rank, backend=backend,
                                     timeout=datetime.timedelta(seconds=CP_COLLECTIVE_TIMEOUT_S))
     try:
@@ -3499,10 +4312,21 @@ def cp_rank(rank, world, store, out_dir, parts="abcd"):
         tp_mesh = mesh_lib.make_mesh(data=1, tensor=2, device_type="cuda") if world == 2 and "d" in parts else None
         if world == 2 and "b" in parts:
             t0 = time.perf_counter()
-            res["unet"] = cp_unet_forward(mesh, device, tp_mesh)
+            res["unet"] = cp_unet_forward(mesh, device, tp_mesh, grads="e" in parts)
             res["unet_s"] = time.perf_counter() - t0
+            if "grad" in res["unet"]:
+                res["unet_s"] -= sum(r["seconds"] for r in res["unet"]["grad"].values())
         if world == 2 and "c" in parts:
-            res["main"] = cp_main_path(mesh, device)
+            res["main"], carry = cp_main_path(mesh, device)
+            if "e" in parts:
+                t0 = time.perf_counter()
+                per_forward = SITES["xl"] + CP_BIG_SITES * (world - 1)
+                # NTI's gradient skips the first site, a ring site
+                res["ring_grads"] = ring_grad_paths(carry[0], MODELS["xl"][2], *carry[1:], CP_NTI_EPSILON, per_forward,
+                                                    per_forward - world, per_forward)
+                res["ring_grads_s"] = time.perf_counter() - t0
+            del carry
+            torch.cuda.empty_cache()
         if tp_mesh is not None:
             t0 = time.perf_counter()
             res["tp"] = tp_parts(tp_mesh, device)
@@ -3516,7 +4340,7 @@ def cp_rank(rank, world, store, out_dir, parts="abcd"):
     return 0
 
 
-def cp_group(world, root, parts="abcd"):
+def cp_group(world, root, parts="abcde"):
     """Run ``cp_rank`` on ``world`` processes; returns their results. A rank
     that exits non-zero, or a group past ``CP_GROUP_TIMEOUT_S``, kills every
     rank and fails with the ranks' output."""
@@ -3589,7 +4413,27 @@ def phase_cp_path():
          note="one card: both ranks share it and gloo copies every rotation through host memory; these seconds "
               "say nothing about scaling over several cards", card=card_line())
     bwd = sum(row["launches"][0] for row in results[2][0]["kernels"]["backward"])
-    return main["launches"], (bwd, bwd), tp_line(two)
+    return main["launches"], (bwd, bwd), tp_line(two), cp_grad_line(two)
+
+
+def cp_grad_line(ranks):
+    """Holds the two ranks' part (e) to each other (the f32 gradients', the
+    NTI embeddings' and stops' and the pix2pix-zero images' digests, the
+    launches), emits the ``cp_grad`` line, and returns rank 0's (forward,
+    dQ, dK/dV) launches of (e)."""
+    first, second = ({**res["unet"]["grad"], **res["ring_grads"]} for res in ranks)
+    differ = {f"{key} {field}": (mine.get(field), second[key].get(field)) for key, mine in first.items()
+              for field in ("digest", "stops", "image_sha256", "launches") if mine.get(field) != second[key].get(field)}
+    if differ:
+        raise AssertionError(f"cp (e): the ranks differ in {differ}; rank 0's results {first}")
+    stops = first["nti"]["stops"]
+    emit("cp_grad", model="SDXL base (random weights, seed 0)", resolution=1024, world=2, backend=ranks[0]["backend"],
+         mode="ring", unet_gradients=dict(dtype="float32", remat=True, **{k: first[k] for k in ("batch1", "batch2")}),
+         nti=dict(dtype="bfloat16", stops_mixed=min(stops) < max(stops), **first["nti"]),
+         p2z=dict(dtype="bfloat16", **first["p2z"]), ranks_equal=True,
+         seconds=ranks[0]["ring_grads_s"] + sum(first[k]["seconds"] for k in ("batch1", "batch2")),
+         note="two ranks on one card over gloo: the ring's collectives go through host memory", card=card_line())
+    return tuple(map(sum, zip(*(first[k]["launches"] for k in first))))
 
 
 def tp_line(ranks):
@@ -3597,12 +4441,13 @@ def tp_line(ranks):
     other, emits the ``tp`` line, and returns rank 0's (forward, dQ, dK/dV)
     launches of the three checks."""
     first, second = (res["tp"] for res in ranks)
-    for key in ("unet", "control", "train"):
+    for key in ("unet", "control", "train", "p2z_step", "nti", "p2z"):
         mine, other = first[key], second[key]
-        for field in ("digest", "blend_digest", "replicated_digest", "loss", "launches"):
+        for field in ("digest", "blend_digest", "replicated_digest", "loss", "launches", "stops"):
             if mine.get(field) != other.get(field):
                 raise AssertionError(f"tp {key}: the ranks' {field} differ: {mine.get(field)} / {other.get(field)}")
-    fwd = first["unet"]["launches"] + first["control"]["launches"] + first["train"]["launches"][0]
+    fwd = first["unet"]["launches"] + first["control"]["launches"]
+    grads = [first[key]["launches"] for key in ("train", "p2z_step", "nti", "p2z")]
     emit("tp", world=2, mesh={"data": 1, "tensor": 2}, backend=ranks[0]["backend"],
          unet=dict(model="SDXL base UNet (random weights, seed 0; (b)'s module, split in place)", resolution=1024,
                    dtype="float32", batch=4, **first["unet"]),
@@ -3610,11 +4455,18 @@ def tp_line(ranks):
                       control="P2P refine with LocalBlend, step 1", **first["control"]),
          train=dict(model="SD1.5 UNet (random weights, seed 1)", resolution=512, dtype="float32",
                     batch=TP_TRAIN_BATCH, optimizer="Adam, lr 1e-4", **first["train"]),
+         p2z_step=dict(model="SD1.5 (random weights, seed 0)", resolution=512, dtype="float32", batch=P2Z_BATCH,
+                       **first["p2z_step"]),
+         nti=dict(model="SD1.5 (random weights, seed 0; (d)'s pipe, split, cast to bf16)", resolution=512,
+                  dtype="bfloat16", stops_mixed=min(first["nti"]["stops"]) < max(first["nti"]["stops"]),
+                  **first["nti"]),
+         p2z=dict(model="SD1.5 (random weights, seed 0; (d)'s pipe, split, cast to bf16)", resolution=512,
+                  dtype="bfloat16", **first["p2z"]),
          ranks_equal=True, seconds=ranks[0]["tp_s"] + first["unet"]["seconds"],
          seconds_by_rank=[res["tp_s"] for res in ranks],
          note="two ranks on one card over gloo: every all-reduce goes through host memory, so these seconds say "
               "nothing about tensor parallelism's speed over cards", card=card_line())
-    return fwd, first["train"]["launches"][1], first["train"]["launches"][2]
+    return tuple(a + b for a, b in zip((fwd, 0, 0), map(sum, zip(*grads))))
 
 
 def main() -> int:
@@ -3645,6 +4497,8 @@ def main() -> int:
                 launches["checkpoint"], snapshot = run("checkpoint_path", phase_checkpoint_path, profile_args[0], tmp)
                 launches["sweep"], sweep_runs = run("sweep_path", phase_sweep_path, tmp, snapshot)
                 launches["serve"] = run("serve_path", phase_serve_path, tmp, snapshot)
+                grad_groups = run("grad_groups_path", phase_grad_groups_path, tmp, snapshot)
+                run("launcher_path", phase_launcher_path, tmp)
                 validation = run("validation_path", phase_validation_path, tmp, snapshot)
                 launches["validation"], launches["validation_rerun"] = (counts[0] for counts in validation)
         else:
@@ -3657,6 +4511,8 @@ def main() -> int:
         launches[prefix + "pnp"] = run(prefix + "pnp_path", phase_pnp_path, model, profile_args[0], inversion)
         p2z_runs[model], p2z_inversion = run(prefix + "p2z_path", phase_p2z_path, model, profile_args[0], nti)
         launches[prefix + "p2z"] = p2z_inversion[0] + sum(counts[0] for counts in p2z_runs[model].values())
+        if model == "xl":  # on the XL pipe while it is loaded: a group from two of its inverted latents
+            xl_group = run("xl_p2z_group_path", phase_xl_p2z_group_path, profile_args[0], (nti[0], inversion[0]))
         del profile_args, nti, inversion  # the next model needs the card's memory
         torch.cuda.empty_cache()
     launches["sd21"], unet_ms["sd21"], pipe21 = run("sd21_path", phase_sd21_path,
@@ -3666,7 +4522,7 @@ def main() -> int:
     del pipe21
     torch.cuda.empty_cache()
     launches["refiner"] = run("refiner", phase_refiner)
-    launches["cp"], cp_bwd, tp_launches = run("cp_path", phase_cp_path)
+    launches["cp"], cp_bwd, tp_launches, cp_grad = run("cp_path", phase_cp_path)
     emit("seconds", **seconds)
     for model in MODELS:
         fwd, bwd = sums[model], bwd_sums[model]["all"]
@@ -3708,17 +4564,23 @@ def main() -> int:
         "replaces": f"{tpu}:{line}", "also_replaces": f"{tpu}:{line_t}",
         "launches": sum(counts[i] for counts in bwd_launches.values())
         + sum(counts[i + 1] for runs in p2z_runs.values() for counts in runs.values())
-        + sum(counts[i + 1] for counts in validation) + cp_bwd[i] + tp_launches[i + 1],
+        + sum(counts[i + 1] for counts in validation) + cp_bwd[i] + tp_launches[i + 1]
+        + grad_groups[i + 1] + xl_group[i + 1] + cp_grad[i + 1],
         "launches_by_path": {"nti_path": bwd_launches["sd"][i], "xl_nti_path": bwd_launches["xl"][i],
                              "sd21_nti_path": bwd_launches["sd21"][i],
                              "masactrl_path": 0, "xl_masactrl_path": 0, "pnp_path": 0, "xl_pnp_path": 0,
                              "p2z_path": sum(counts[i + 1] for counts in p2z_runs["sd"].values()),
                              "xl_p2z_path": sum(counts[i + 1] for counts in p2z_runs["xl"].values()),
                              "validation_path": validation[0][i + 1], "validation_rerun": validation[1][i + 1],
-                             "cp_path": cp_bwd[i], "tp_path": tp_launches[i + 1]},
+                             "cp_path": cp_bwd[i], "tp_path": tp_launches[i + 1],
+                             "grad_groups_path": grad_groups[i + 1], "xl_p2z_group_path": xl_group[i + 1],
+                             "cp_grad_path": cp_grad[i + 1]},
         "cp_path_launches": "rank 0's: the ring's backward at SDXL's 4096-token site, batch 1 and 2, bf16 and f32, "
                             "on 2 ranks (2 of each kernel per call)",
-        "tp_path_launches": "rank 0's: the SD1.5 512² train step under tensor parallelism on 2 ranks, f32 (16)",
+        "tp_path_launches": "rank 0's under tensor parallelism on 2 ranks at SD1.5 512²: the f32 train step and "
+                            "p2z guided step (16 each), NTI and p2z on 10 steps in bf16",
+        "cp_grad_path_launches": "rank 0's under the ring on 2 ranks at SDXL 1024²: the f32 UNet gradients at "
+                                 "batch 1 and 2, NTI on 5 steps and p2z on 10 in bf16",
         "max_abs_err": bwd_worst[torch.bfloat16][kernel], "max_abs_err_f32": bwd_worst[torch.float32][kernel],
         **at(bwd_sums["sd"][kernel], *device), "work": work["sd"],
         "at_xl": dict(at(bwd_sums["xl"][kernel], *device), work=work["xl"]),
@@ -3748,7 +4610,7 @@ def main() -> int:
     fwd = {
         "name": "flash_fwd", "route": "cuda", "source": "image_editing_framework_torch/csrc/flash_fwd.cu",
         "replaces": f"{tpu}:76", "also_replaces": f"{tpu}:205",
-        "launches": sum(launches.values()) + tp_launches[0],
+        "launches": sum(launches.values()) + tp_launches[0] + grad_groups[0] + xl_group[0] + cp_grad[0],
         "launches_by_path": {"main_path": launches["sd"], "checkpoint_path": launches["checkpoint"],
                              "sweep_path": launches["sweep"], "serve_path": launches["serve"],
                              "validation_path": launches["validation"],
@@ -3759,10 +4621,15 @@ def main() -> int:
                              "pnp_path": launches["pnp"], "xl_pnp_path": launches["xl_pnp"],
                              "p2z_path": launches["p2z"], "xl_p2z_path": launches["xl_p2z"],
                              "sd21_path": launches["sd21"], "sd21_nti_path": launches["sd21_nti"],
-                             "refiner": launches["refiner"], "cp_path": launches["cp"], "tp_path": tp_launches[0]},
+                             "refiner": launches["refiner"], "cp_path": launches["cp"], "tp_path": tp_launches[0],
+                             "grad_groups_path": grad_groups[0], "xl_p2z_group_path": xl_group[0],
+                             "cp_grad_path": cp_grad[0]},
         "cp_path_launches": "rank 0's: the SDXL 1024² main path under the ring on 2 ranks (80 per UNet forward)",
         "tp_path_launches": "rank 0's under tensor parallelism on 2 ranks: the f32 SDXL 1024² UNet forward (70), "
-                            "the SD1.5 512² control forward (16) and train step (16)",
+                            "the SD1.5 512² control forward (16), train step (16) and p2z guided step (16), NTI "
+                            "and p2z on 10 steps in bf16",
+        "cp_grad_path_launches": "rank 0's under the ring on 2 ranks at SDXL 1024²: the f32 UNet gradients at batch "
+                                 "1 and 2, NTI on 5 steps and p2z on 10 in bf16",
         "p2z_launches_by_run": p2z_runs,
         "sweep_launches_by_run": sweep_runs,
         "masactrl_launches_by_run": masa_runs,

@@ -2,6 +2,7 @@
 a card: with no CUDA device visible, and from a directory that holds the
 script and nothing else of the repository."""
 
+import inspect
 import os
 import shutil
 import subprocess
@@ -548,13 +549,15 @@ def test_clip_checkpoint_writer_gives_clip_scores_shapes(tmp_path, monkeypatch):
 
 
 def test_xl_p2z_nti_cut_keeps_steps_and_embeddings_aligned():
-    """SDXL's p2z edit on the DDIM inversion runs every
+    """The p2z edits on the DDIM inversion run every
     ``XL_P2Z_NTI_STRIDE``-th step of the 50: that schedule's k-th timestep
     is the full schedule's step stride * k + stride - 1, and its first
     latent is the 50-step inversion trajectory's entry at that timestep.
-    Its edit on NTI embeddings takes the NTI path's own steps (SDXL's NTI
-    path runs every ``XL_NTI_STRIDE``-th step), its last latent and all its
-    embeddings, as the MasaCtrl edit on them does."""
+    The edits on NTI embeddings take the same steps of a 50-step NTI run
+    (SD1.5's: ``strided_nti``, its trajectory's entry and its embeddings at
+    those steps) and an NTI run's own cut steps (SDXL's NTI path runs every
+    ``XL_NTI_STRIDE``-th step), its last latent and all its embeddings, as
+    the MasaCtrl edit on them does."""
     import inspect
 
     from image_editing_framework_torch.core.scheduler import inversion_timestep, make_ddim_schedule
@@ -570,7 +573,7 @@ def test_xl_p2z_nti_cut_keeps_steps_and_embeddings_aligned():
     assert inversion_timestep(full, j) == int(short.timesteps[0])
     path = inspect.getsource(smoke.phase_p2z_path)
     assert "ddim_traj[STEPS + 1 - stride], None, STEPS // stride" in path
-    assert '("nti", nti[0], nti[1], nti[1].shape[0])' in path
+    assert '("nti", *strided_nti(nti, stride))' in path
     assert "pipe.scheduler = denoise, guided, full_schedule" in path  # the full schedule restored
     assert steps % smoke.XL_NTI_STRIDE == 0 and smoke.XL_NTI_STRIDE > 1
     nti = inspect.getsource(smoke.phase_nti_path)
@@ -578,6 +581,14 @@ def test_xl_p2z_nti_cut_keeps_steps_and_embeddings_aligned():
     assert "sites * 4 * steps + per_iteration * j" in nti and "pipe.scheduler = inner, config_for, full_schedule" in nti
     masa = inspect.getsource(smoke.phase_masactrl_path)
     assert '("nti_mutual", nti[0], dict(uncond_seq=nti[1]), sites, nti[1].shape[0])' in masa
+    # strided_nti: a 50-step run's embeddings at the short schedule's steps and its trajectory's entry at
+    # the short schedule's first timestep; a run already cut gives its own
+    seq, traj, last = torch.arange(steps), torch.arange(steps + 1), torch.tensor(-1)
+    start, embeddings, n = smoke.strided_nti((last, seq, traj), stride)
+    assert n == steps // stride and embeddings.tolist() == [stride * k + stride - 1 for k in range(n)]
+    assert int(start) == steps + 1 - stride and inversion_timestep(full, int(start) - 1) == int(short.timesteps[0])
+    cut = torch.arange(steps // stride)
+    assert smoke.strided_nti((last, cut, traj), stride) == (last, cut, steps // stride)
 
 
 def test_chip_smoke_wires_the_cp_path():
@@ -657,10 +668,11 @@ def test_chip_smoke_wires_the_tp_part():
 
 def test_tp_part_rehearses_on_cpu_ranks(tmp_path):
     """chip_smoke.py's tensor-parallel checks on two CPU ranks at tiny
-    size: they pass (the train step's gate rejecting its two planted
-    gradient faults on the way), the two ranks' results agree bitwise, and
-    with GEGLU's halves split together, or with the column-parallel layers'
-    input gradients left unreduced throughout, a check fails."""
+    size, (d4) NTI and (d5) pix2pix-zero included: they pass (the train
+    step's gate rejecting its two planted gradient faults on the way), the
+    two ranks' results agree bitwise (NTI's stops too), and with GEGLU's
+    halves split together, or with the column-parallel layers' input
+    gradients left unreduced throughout, a check fails."""
     from torch_cp_workers import launch
 
     ranks = launch("tp_smoke", 2, tmp_path)
@@ -668,9 +680,13 @@ def test_tp_part_rehearses_on_cpu_ranks(tmp_path):
         assert str(res["sound/error"]) == "", str(res["sound/error"])
         assert np.all(res["sound/errors"] >= 0)
         assert str(res["geglu_fault/error"]).startswith("tp "), str(res["geglu_fault/error"])
-        assert str(res["copy_fault/error"]).startswith("tp the train step's gradients"), str(res["copy_fault/error"])
+        # the column-parallel input gradients left unreduced: the p2z guided step's gradient, the first
+        # check that differentiates through the split UNet, rejects them
+        assert str(res["copy_fault/error"]).startswith("tp p2z guided step gradient"), str(res["copy_fault/error"])
     for key in (k for k in ranks[0] if k.startswith("sound/") and k != "sound/errors"):
         assert str(ranks[0][key]) == str(ranks[1][key]), key
+    for key in ("p2z_step/digest", "nti/digest", "nti/stops", "p2z/digest"):
+        assert f"sound/{key}" in ranks[0], key
 
 
 def test_chip_smoke_wires_the_sd21_path():
@@ -741,3 +757,187 @@ def test_sd21_single_file_writer_round_trips_on_meta(monkeypatch):
         assert set(want) <= set(got) and all(tuple(got[k].shape) == tuple(want[k].shape) for k in want)
         assert extra == ([] if module is not pipe.text_encoder else
                          sorted(k.replace("layers.22.", "layers.23.") for k in want if ".layers.22." in k))
+
+
+def test_grad_launch_arithmetic():
+    """The gradient paths' exact launch counts: one image's p2z at 10 steps
+    (SD1.5: 480 + 160 for its inversion and 160 of each backward; SDXL's
+    defaults: references recomputed, the checkpointed UNet, 3500 and 700,
+    as ``xl_p2z_path``'s run); NTI (SD1.5 at J = 100 over 50 steps: 3200,
+    1500, as ``nti_path``'s NTI call; the service's null-text group of 2
+    one by one);
+    and under the ring at SDXL on 2 ranks: 80 forward launches a UNet
+    forward, NTI's backward at 78 (the first site, a ring site, takes no
+    gradient), p2z's at 80."""
+    smoke = _load_script()
+    sd, xl, grad = smoke.SITES["sd"], smoke.SITES["xl"], smoke.GRAD_SITES["sd"]
+    assert smoke.p2z_launches(sd, 10) == (640, 160, 160)
+    assert smoke.p2z_launches(sd, 50, inverted=False) == (2400, 800, 800)
+    assert smoke.p2z_launches(xl, 10, recompute=True, checkpointed=True, inverted=False) == (3500, 700, 700)
+    assert smoke.nti_launches(sd, grad, 50, 100) == (3200, 1500, 1500)
+    assert smoke.nti_launches(xl, smoke.GRAD_SITES["xl"], 10, 10, checkpointed=True) == (2800, 690, 690)
+    assert smoke.nti_launches(sd, grad, 10, 40, images=2) == (16 * 80, 600, 600)
+    world, per_forward = 2, xl + smoke.CP_BIG_SITES
+    assert per_forward == 80 and smoke.SITES["xl"] - smoke.GRAD_SITES["xl"] == 1
+    assert smoke.nti_launches(per_forward, per_forward - world, 5, 7, checkpointed=True) == (80 * 24, 78 * 7, 78 * 7)
+    assert smoke.p2z_launches(per_forward, 10, recompute=True, checkpointed=True, inverted=False,
+                              grad_sites=per_forward) == (4000, 800, 800)
+    # the backward kernels are held at every batch the new paths give them, with planted faults
+    source = inspect.getsource(smoke.phase_bwd_kernels)
+    assert '(P2Z_BATCH * P2Z_GROUP, "xl", PATH_SHAPES["xl"])' in source and "faults=True" in source
+    assert smoke.P2Z_BATCH * smoke.P2Z_GROUP == 4 and smoke.NTI_GROUP == 3
+
+
+def test_grad_spool_groups_and_words():
+    """The service's gradient spool makes two groups of 2, a pix2pix-zero
+    DDIM group and a P2P null-text group, by the service's own grouping
+    key; every prompt word is a whole token of the snapshot's synthetic
+    vocab; batched NTI's three pairs and SDXL's p2z group have their
+    sizes."""
+    from image_editing_framework_torch.pipelines import tiny_pipeline
+    from image_editing_framework_torch.serve import EditService
+
+    smoke = _load_script()
+    svc = EditService(tiny_pipeline(num_steps=4, device="cpu"), os.path.join(os.environ.get("TMPDIR", "/tmp"),
+                                                                             "ief_grad_spool_keys"), max_batch=2)
+    keys = {name: svc._batch_key(dict(method=m, source_prompt=s, target_prompt=t, image_path="x.png",
+                                      inversion_type=inv))
+            for name, (m, s, t, inv) in smoke.GRAD_SPOOL.items()}
+    assert {keys[n] for n in smoke.P2Z_SERVE_GROUP} == {("p2z", True, "ddim")}
+    assert {keys[n] for n in smoke.NTI_SERVE_GROUP} == {("p2p", True, "null-text")}
+    assert set(smoke.P2Z_SERVE_GROUP) | set(smoke.NTI_SERVE_GROUP) == set(smoke.GRAD_SPOOL)
+    assert len(smoke.P2Z_SERVE_GROUP) == len(smoke.NTI_SERVE_GROUP) == smoke.P2Z_GROUP == 2
+    words = {w for _, s, t, _ in smoke.GRAD_SPOOL.values() for w in (s + " " + t).split()}
+    words |= {w for pair in smoke.NTI_GROUP_PAIRS for p in pair for w in p.split()}
+    assert words <= set(smoke.CKPT_WORDS)
+    assert len(smoke.NTI_GROUP_PAIRS) == smoke.NTI_GROUP == len(smoke.TINY_NTI_SCALES)
+    assert len(smoke.XL_P2Z_PAIRS) == smoke.P2Z_GROUP
+    svc._io_pool.shutdown()
+    svc._finalize_pool.shutdown()
+
+
+def test_launcher_shards_partition_the_mini_pie(tmp_path):
+    """The launcher phase's gate: the mini PIE's default-category items,
+    strided over LAUNCHER_SHARDS as ``run_sweep`` strides them, partition
+    the items; the category-5 item is in no shard."""
+    from image_editing_framework_torch.data.pie import DEFAULT_CATEGORIES, PIE
+
+    smoke = _load_script()
+    pie = smoke.write_mini_pie(str(tmp_path / "PIE"), 16)
+    work = [it.key for c in DEFAULT_CATEGORIES for it in PIE(pie, c).items]
+    shards = [work[i::smoke.LAUNCHER_SHARDS] for i in range(smoke.LAUNCHER_SHARDS)]
+    assert sorted(k for shard in shards for k in shard) == sorted(work) and len(work) == 3
+    assert all(shards) and not set(shards[0]) & set(shards[1])
+    assert len(PIE(pie).items) == len(work) + 1
+    launcher = inspect.getsource(smoke.phase_launcher_path)
+    for flag in ("--random_weights", "--num_steps", "--shard_index", "--shard_count", "--exp_path"):
+        assert f'"{flag}"' in launcher, flag
+    assert '"--num_processes"' not in launcher  # its process group takes NCCL, which refuses two ranks on one card
+
+
+def test_frozen_after_stop_reads_the_recorded_embeddings():
+    """``frozen_after_stop`` counts the entries where an image that has
+    stopped enters a later inner iteration with the step's result, and
+    fails where one moved, or where the recorded iterations and the stops
+    disagree."""
+    smoke = _load_script()
+    g, steps = 3, 2
+    seqs = torch.randn(g, steps, 4, 5)
+    stops = [[2, 1, 2], [1, 1, 2]]
+    embeddings = []
+    for i, step in enumerate(stops):
+        for j in range(max(step)):
+            u = torch.randn(g, 4, 5)
+            for k, stop in enumerate(step):
+                if j >= stop:
+                    u[k] = seqs[k, i]
+            embeddings.append(u)
+    assert smoke.frozen_after_stop(stops, embeddings, seqs) == 3
+    moved = [u.clone() for u in embeddings]
+    moved[1][1] += 1e-7
+    with pytest.raises(AssertionError, match="image 1 stopped after 1"):
+        smoke.frozen_after_stop(stops, moved, seqs)
+    with pytest.raises(AssertionError, match="recorded"):
+        smoke.frozen_after_stop(stops, embeddings[:-1], seqs)
+
+
+def test_step0_epsilon_splits_a_tiny_group():
+    """``step0_epsilon`` on the tiny pipeline's group of 3 (its start
+    latents scaled by TINY_NTI_SCALES): batched NTI at that epsilon stops
+    the images at step 0 after 1 and after 2 inner iterations, and the
+    recorded embeddings show the stopped ones frozen."""
+    from image_editing_framework_torch.core.config import NTIConfig
+    from image_editing_framework_torch.eval import batched
+    from image_editing_framework_torch.pipelines import tiny_pipeline
+
+    smoke = _load_script()
+    pipe = tiny_pipeline(num_steps=4, device="cpu")
+    prompts = [p[0] for p in smoke.NTI_GROUP_PAIRS]
+    scales = torch.tensor(smoke.TINY_NTI_SCALES)[:, None, None, None, None]
+    lats = torch.from_numpy(np.random.RandomState(2).randn(3, 1, 16, 16, 4).astype(np.float32)) * scales
+    _, trajs = batched.ddim_invert_batch(pipe, lats, prompts, return_trajectory=True)
+    epsilon, losses = smoke.step0_epsilon(pipe, trajs, prompts)
+    assert min(losses) < epsilon < max(losses)
+    with smoke.nti_recorded() as seen:
+        seqs, stops = batched.nti_batch(pipe, trajs, prompts, NTIConfig(num_inner_steps=2, epsilon=epsilon),
+                                        return_stops=True)
+    assert sorted(set(stops[0])) == [1, 2]
+    assert smoke.frozen_after_stop(stops, seen["embeddings"], seqs) >= 1
+    assert len(seen["losses"]) == sum(max(step) for step in stops)
+
+
+def test_trajectory_at_takes_the_coarse_schedules_entries():
+    """(e2)'s trajectory: of a 10-step inversion trajectory, the clean latent
+    and the entries at the 5-step schedule's inversion timesteps."""
+    from image_editing_framework_torch.core.scheduler import inversion_timestep, make_ddim_schedule
+
+    smoke = _load_script()
+    full, short = make_ddim_schedule(10), make_ddim_schedule(smoke.CP_NTI_STEPS)
+    traj = torch.arange(11)
+    got = smoke.trajectory_at(traj, full, short).tolist()
+    assert got == [0, 1, 3, 5, 7, 9]
+    assert [inversion_timestep(full, j - 1) for j in got[1:]] == [inversion_timestep(short, m) for m in range(5)]
+
+
+def test_chip_smoke_wires_the_gradient_paths():
+    """main() runs grad_groups_path and the launcher on the SD1.5 snapshot
+    after the service, xl_p2z_group_path on the XL pipe after xl_p2z_path,
+    and cp_path's part (e) in its group of 2; the kernels line counts
+    their launches by path; the runway and the p2z edits take their cuts."""
+    smoke = _load_script()
+    main = inspect.getsource(smoke.main)
+    assert main.index("phase_serve_path") < main.index("phase_grad_groups_path") < main.index(
+        "phase_launcher_path") < main.index("phase_validation_path")
+    assert main.index("phase_p2z_path") < main.index("phase_xl_p2z_group_path") < main.index("del profile_args")
+    for key in ("grad_groups_path", "xl_p2z_group_path", "cp_grad_path"):
+        assert main.count(f'"{key}": ') == 2, key
+    rank = inspect.getsource(smoke.cp_rank)
+    assert 'parts="abcde"' in rank and "ring_grad_paths(" in rank and 'grads="e" in parts' in rank
+    assert "cp_unet_gradients(unet, mesh, lat, ctx, added)" in inspect.getsource(smoke.cp_unet_forward)
+    assert "cp_grad_line(two)" in inspect.getsource(smoke.phase_cp_path)
+    parts = inspect.getsource(smoke.tp_parts)
+    assert parts.index("tp_p2z_step(pipe, latent_side)") < parts.index("tp_control_forward") < parts.index(
+        "tp_grad_paths(pipe, side)") < parts.index("tp_train_step")
+    assert smoke.VALIDATION_STEPS == 10 and '"--num_steps", str(VALIDATION_STEPS)' in inspect.getsource(
+        smoke.phase_validation_path)
+    assert (smoke.GRAD_STRIDE, smoke.GRAD_INNER_STEPS, smoke.GRAD_RTOL, smoke.CP_NTI_STEPS) == (5, 2, 1e-3, 5)
+
+
+def test_ring_grad_paths_rehearse_on_cpu_ranks(tmp_path):
+    """chip_smoke.py's part (e) on two CPU ranks at tiny size: the f32
+    gradients through the checkpointed UNet under the ring within their
+    limit of the unsharded ones, NTI and pix2pix-zero under the ring with
+    the checkpointed UNet (its recomputation reruns the ring's collectives
+    in the backward pass); the two ranks' gradients, embeddings, stops and
+    images bitwise equal."""
+    from torch_cp_workers import launch
+
+    ranks = launch("cp_smoke", 2, tmp_path)
+    for res in ranks:
+        for batch in ("batch1", "batch2"):
+            assert np.all(res[f"{batch}/errors"] <= res[f"{batch}/limits"]), batch
+        assert res["checkpointed"].tolist() == [True, True]
+        assert len(res["nti/stops"]) == _load_script().CP_NTI_STEPS and np.all(np.isfinite(res["nti/losses"]))
+    for key in ranks[0]:
+        if not key.endswith("errors") and key != "rank":
+            np.testing.assert_array_equal(ranks[0][key], ranks[1][key], err_msg=key)

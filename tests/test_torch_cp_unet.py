@@ -14,12 +14,20 @@ for the file) load the JAX tiny pipeline's UNet weights and run, with
 * null-text inversion under the ring (``null_text_inversion_batch`` of one
   image, its stops returned) against JAX's ``null_text_inversion``; then
   again with rank 1's losses skewed by 1e3, where every rank must stop
-  where rank 0 stops (``parallel/ring_attention.py lockstep``).
+  where rank 0 stops (``parallel/ring_attention.py lockstep``);
+* pix2pix-zero under the ring through the checkpointed UNet
+  (``grad_unet(..., force=True)``): one guided step's loss and gradient
+  against references the ranks made unsharded (JAX takes the same), and
+  pass 2 over the schedule with its references made again from a stored
+  trajectory (``recompute_refs``), against JAX's unsharded
+  ``methods/p2z.py``; the ranks' results bitwise equal.
 
 Tolerances: the UNet and the overrides within ``ATOL`` = 2e-5, the JAX
 package's limit for its CP UNet against its plain one; the NTI embeddings
 within ``ATOL_EMB`` = 1e-3, a tenth of one Adam step, as
-tests/test_torch_nti.py states it.
+tests/test_torch_nti.py states it; the p2z gradient within ``GRAD_RTOL`` =
+1e-4 of its max and its loss within 1e-5 relative, the final latent within
+``ATOL_EDIT`` = 1e-3, as tests/test_torch_p2z.py holds them unsharded.
 """
 
 import jax
@@ -30,10 +38,11 @@ from jax.sharding import Mesh
 
 from image_editing_framework_tpu.core.config import MasaCtrlConfig, NTIConfig
 from image_editing_framework_tpu.inversion.nti import null_text_inversion
+from image_editing_framework_tpu.methods import p2z as jp2z
 from image_editing_framework_tpu.models import configs, loader
 from image_editing_framework_tpu.models.unet import UNet2DCondition
 from image_editing_framework_tpu.ops.attention import AttnSite
-from image_editing_framework_tpu.ops.controls import MasaCtrlAutoStep, MasaCtrlMaskStep, build_masactrl_control
+from image_editing_framework_tpu.ops.controls import MasaCtrlAutoStep, MasaCtrlMaskStep, P2ZStep, build_masactrl_control
 from image_editing_framework_tpu.pipelines import tiny_pipeline
 from torch_cp_workers import launch
 
@@ -42,6 +51,9 @@ ATOL_EMB = 1e-3
 STEPS = 3
 INNER = 4
 EPSILON = 5.3  # between the steps' losses (5.7-5.06 at step 0, 9.5-9.2 after): step 0 stops after 3 iterations
+GRAD_RTOL = 1e-4
+ATOL_EDIT = 1e-3
+GS = 7.5
 
 
 def _inputs():
@@ -63,6 +75,12 @@ def _inputs():
         "steps": np.array(STEPS),
         "inner": np.array(INNER),
         "epsilon": np.array(EPSILON),
+        "p2z_x": rng.standard_normal((2, 16, 16, 4)).astype(f32),  # a CFG pair whose halves differ
+        "p2z_src": rng.standard_normal((2, 16, 16, 4)).astype(f32),
+        "p2z_ctx": rng.standard_normal((2, 77, 32)).astype(f32),
+        "p2z_ctx_src": rng.standard_normal((2, 77, 32)).astype(f32),
+        "p2z_lat": rng.standard_normal((1, 16, 16, 4)).astype(f32),
+        "p2z_src_traj": rng.standard_normal((STEPS, 1, 16, 16, 4)).astype(f32),
     }
 
 
@@ -150,3 +168,48 @@ def test_nti_ranks_stop_in_lockstep(setup):
     _, _, ranks = setup
     for res in ranks:
         assert res["nti_ring_skewed_stops"].tolist() == ranks[0]["nti_ring_stops"].tolist()
+
+
+def test_p2z_guided_step_under_the_ring_matches_jax(setup):
+    """One guided step's loss and gradient with respect to the CFG pair,
+    through the checkpointed UNet under the ring, against JAX's unsharded
+    ``attn_loss`` and its gradient on the same references."""
+    jpipe, inp, ranks = setup
+    refs = {k[len("p2z_refs/"):]: jnp.asarray(v, jnp.bfloat16) for k, v in ranks[0].items()
+            if k.startswith("p2z_refs/")}
+    assert refs
+    t = jpipe.scheduler.timesteps[1]
+    ctx = jnp.asarray(inp["p2z_ctx"])
+
+    def attn_loss(x):
+        _, rec = jpipe.unet.apply(jpipe.unet_params, x, t, ctx, P2ZStep(), None, False)
+        return sum(jnp.square(cur.astype(jnp.float32) - refs[k].astype(jnp.float32)).sum(axis=(2, 3)).mean()
+                   for k, cur in rec.items())
+
+    loss, grad = jax.jit(jax.value_and_grad(attn_loss))(jnp.asarray(inp["p2z_x"]))
+    grad = np.asarray(grad)
+    for res in ranks:
+        np.testing.assert_allclose(float(res["p2z_ring_loss"]), float(loss), rtol=1e-5)
+        np.testing.assert_allclose(res["p2z_ring_grad"], grad, atol=GRAD_RTOL * np.abs(grad).max(), rtol=0)
+    assert np.abs(grad[0] - grad[1]).max() > 0.1 * np.abs(grad).max()  # the halves get their own gradients
+
+
+def test_p2z_pass_two_under_the_ring_matches_jax(setup):
+    """Pass 2 over the schedule under the ring, each step's references made
+    again from the stored trajectory, against JAX's unsharded
+    ``_guided_scan`` in its ``recompute_refs`` mode."""
+    jpipe, inp, ranks = setup
+    ref = jp2z._guided_scan(jpipe.unet, jpipe.unet_params, jpipe.scheduler, jnp.asarray(inp["p2z_lat"]),
+                            jnp.asarray(inp["p2z_ctx"]), None, jnp.float32(GS), jnp.float32(0.1), None, None, False,
+                            src_traj=jnp.asarray(inp["p2z_src_traj"]), ctx_src=jnp.asarray(inp["p2z_ctx_src"]))
+    ref = np.asarray(ref)
+    for res in ranks:
+        assert res["p2z_ring_losses"].shape == (STEPS,) and np.all(np.isfinite(res["p2z_ring_losses"]))
+        np.testing.assert_allclose(res["p2z_ring_final"], ref, atol=ATOL_EDIT, rtol=0)
+    assert np.abs(ref - inp["p2z_lat"]).max() > 10 * ATOL_EDIT  # the pass moves the latent
+
+
+@pytest.mark.parametrize("key", ["p2z_ring_loss", "p2z_ring_grad", "p2z_ring_final", "p2z_ring_losses"])
+def test_p2z_under_the_ring_is_bitwise_equal_on_both_ranks(setup, key):
+    _, _, ranks = setup
+    np.testing.assert_array_equal(ranks[0][key], ranks[1][key])

@@ -6,11 +6,15 @@ poll, ``main`` with ``run_forever`` patched out, and parity: one spool
 served by both packages' services on one set of weights
 (``shared_pipelines``, 4 steps, 32²) gives the same PNGs, ``source.png``
 equal and ``inversion.png`` / ``edit.png`` within ``LEVELS`` = 1 uint8
-level (``tests/test_batched.py``'s limit). The synthesis requests' start
+level (``tests/test_batched.py``'s limit), for a spool of P2P, MasaCtrl and
+PnP requests and for one of the gradient groups (a pix2pix-zero DDIM group
+and a P2P null-text group; the JAX side's edits there without its Pallas
+kernels, whose backward in interpret mode would take minutes). The synthesis requests' start
 latents are injected in both packages: the port draws them from a torch
 generator, JAX from its own PRNG, and the two streams differ by design.
 """
 
+import functools
 import json
 import os
 
@@ -27,6 +31,7 @@ from image_editing_framework_torch.core.config import P2PConfig
 from image_editing_framework_torch.pipelines import tiny_pipeline
 from image_editing_framework_torch.utils.images import decode_png
 from image_editing_framework_tpu import serve as jserve
+from image_editing_framework_tpu.eval import batched as jbatched
 from torch_port_helpers import fix_vocab, shared_pipelines
 
 LEVELS = 1
@@ -302,4 +307,40 @@ def test_both_services_give_the_same_pngs(tmp_path, monkeypatch):
                     for svc in services.values())
             # a synthesis latent is res // 8 wide in both services: 8² images from the tiny VAE
             assert a.shape == b.shape == ((RES, RES, 3) if image_seed is not None else (8, 8, 3)) and b.std() > 0
+            assert np.abs(a - b).max() <= (0 if f == "source" else LEVELS), (name, f, np.abs(a - b).max())
+
+
+# two gradient groups: pix2pix-zero on DDIM inversions, P2P on null-text
+# inversions (each image's NTI run on its own, ``nti_group_serial``)
+GRAD_SPOOL = [
+    ("p2z_a", dict(method="p2z", source_prompt="a cat sat", target_prompt="a dog sat", inversion_type="ddim"), 4),
+    ("p2z_b", dict(method="p2z", source_prompt="a dog sat", target_prompt="a cat sat", inversion_type="ddim"), 5),
+    ("nti_a", dict(method="p2p", source_prompt="a cat sat", target_prompt="a dog sat", inversion_type="null-text"),
+     6),
+    ("nti_b", dict(method="p2p", source_prompt="a cat sat", target_prompt="a fluffy cat sat",
+                   inversion_type="null-text"), 7),
+]
+
+
+def test_both_services_give_the_same_pngs_for_the_gradient_groups(tmp_path, monkeypatch):
+    jpipe, tpipe = shared_pipelines(num_steps=4)
+    fix_vocab((jpipe, tpipe), ["a cat sat dog fluffy"])
+    for name in ("ddim_invert_batch", "nti_group_serial", "edit_batch"):
+        monkeypatch.setattr(jbatched, name, functools.partial(getattr(jbatched, name), use_flash=False))
+    services = {"jax": jserve.EditService(jpipe, str(tmp_path / "jax"), resolution=RES, max_batch=4),
+                "port": tserve.EditService(tpipe, str(tmp_path / "port"), resolution=RES, max_batch=4)}
+    for name, req, image_seed in GRAD_SPOOL:
+        image_path = _image(tmp_path / f"{name}.png", image_seed)
+        for svc in services.values():
+            _request(svc, name, image_path=image_path, **req)
+    for svc in services.values():
+        assert svc.poll_once() == len(GRAD_SPOOL)
+    assert services["jax"].stats == services["port"].stats == {"handled": 4, "batched": 4}
+    for name, _, _ in GRAD_SPOOL:
+        rj, rt = (_response(svc, name) for svc in services.values())
+        assert rj["status"] == rt["status"] == "ok" and rj.get("batched_with") == rt.get("batched_with") == 2, (rj, rt)
+        for f in ("source", "inversion", "edit"):
+            a, b = (decode_png(open(os.path.join(svc.results_dir, name, f + ".png"), "rb").read()).astype(np.int32)
+                    for svc in services.values())
+            assert a.shape == b.shape == (RES, RES, 3) and b.std() > 0
             assert np.abs(a - b).max() <= (0 if f == "source" else LEVELS), (name, f, np.abs(a - b).max())

@@ -1,8 +1,9 @@
 """The batched editors on the tiny SDXL pipeline, the port against the JAX
 package (the cases of ``tests/test_batched.py``'s XL tests): the P2P edit of
 a group, each image with its own added conditions (pooled embeds, and time
-ids from the latents' size), and the batched DDIM inversion followed by
-batched null-text inversion (XL's variant: the negative pooled embeds on
+ids from the latents' size), pix2pix-zero of a group with the XL defaults
+(references made again from pass 1's trajectory), and the batched DDIM
+inversion followed by batched null-text inversion (XL's variant: the negative pooled embeds on
 every unconditional evaluation, every step restarted from the original
 embedding). One set of weights (``shared_pipelines``), 3 steps, 32² images
 at a latent side of 16, a group of G = 2, f32 on both sides (the JAX side
@@ -21,11 +22,13 @@ import pytest
 
 from image_editing_framework_torch.core.config import NTIConfig as TNTIConfig
 from image_editing_framework_torch.core.config import P2PConfig as TP2PConfig
+from image_editing_framework_torch.core.config import P2ZConfig as TP2ZConfig
 from image_editing_framework_torch.core.config import SamplerConfig as TSampler
 from image_editing_framework_torch.eval import batched as tb
 from image_editing_framework_torch.inversion.ddim import ddim_invert as t_ddim_invert
 from image_editing_framework_torch.inversion.nti import null_text_inversion as t_nti
 from image_editing_framework_torch.methods.p2p import p2p_edit
+from image_editing_framework_torch.methods.p2z import p2z_edit
 from image_editing_framework_tpu.core.config import NTIConfig as JNTIConfig
 from image_editing_framework_tpu.eval import batched as jb
 from torch_port_helpers import fix_vocab, n, shared_pipelines, t
@@ -39,12 +42,13 @@ ATOL_EMB = 1e-2 / 10
 SAMPLER = TSampler(height=128, width=128)
 PAIRS = [["a cat sat", "a dog sat"], ["a tree", "a rock"]]
 PROMPTS = ["a cat", "a dog"]
+P2Z_PAIRS = [["a cat", "a dog"], ["a horse", "a zebra"]]
 
 
 @pytest.fixture(scope="module")
 def pipes():
     jpipe, tpipe = shared_pipelines(num_steps=STEPS, model_type="xl")
-    fix_vocab((jpipe, tpipe), [" ".join(p) for p in PAIRS] + PROMPTS)
+    fix_vocab((jpipe, tpipe), [" ".join(p) for p in PAIRS + P2Z_PAIRS] + PROMPTS)
     return jpipe, tpipe
 
 
@@ -77,6 +81,25 @@ def inversions(pipes):
     jout = jb.ddim_invert_batch(jpipe, jnp.asarray(lats), PROMPTS, use_flash=False, return_trajectory=True)
     tout = tb.ddim_invert_batch(tpipe, t(lats), PROMPTS, return_trajectory=True)
     return jout, tout, [t_ddim_invert(tpipe, t(lats[i]), p) for i, p in enumerate(PROMPTS)]
+
+
+def test_xl_p2z_edit_batch(pipes):
+    """SDXL's batched pix2pix-zero with its defaults (the references made
+    again each step from pass 1's trajectory, ``recompute_refs``), each
+    image with its own added conditions: against JAX's ``p2z_edit_batch``
+    and against the port's per-image editor."""
+    jpipe, tpipe = pipes
+    lats = _latents(9)
+    jout = jb.p2z_edit_batch(jpipe, P2Z_PAIRS, jnp.asarray(lats), use_flash=False)
+    tout = tb.p2z_edit_batch(tpipe, P2Z_PAIRS, t(lats))
+    assert tout.shape == np.asarray(jout).shape == (2, 2, 32, 32, 3) and tout.dtype == np.uint8 and tout.std() > 0
+    assert _levels(tout, jout) <= LEVELS
+    cfg = TP2ZConfig(recompute_refs=True)
+    for i, pair in enumerate(P2Z_PAIRS):
+        assert _levels(tout[i], np.concatenate(p2z_edit(tpipe, pair, t(lats[i]), cfg, SAMPLER))) <= LEVELS, i
+    # the guidance shows: the same group without it gives other edits
+    unguided = tb.p2z_edit_batch(tpipe, P2Z_PAIRS, t(lats), TP2ZConfig(recompute_refs=True, guidance_amount=0.0))
+    assert _levels(unguided[:, 1], tout[:, 1]) > LEVELS
 
 
 def test_xl_ddim_invert_batch(inversions):

@@ -162,15 +162,18 @@ def _unet_inputs(in_dir):
 
 def suite_unet(mesh1d, rank, in_dir):
     """The tiny UNet with CP (ring, Ulysses; a masked MasaCtrl control), the
-    masked overrides under CP, NTI under the ring."""
+    masked overrides under CP, NTI and pix2pix-zero under the ring."""
     import torch
 
     from image_editing_framework_torch.core.config import MasaCtrlConfig, NTIConfig
     from image_editing_framework_torch.inversion import nti
+    from image_editing_framework_torch.methods import p2z
+    from image_editing_framework_torch.methods.common import grad_unet
     from image_editing_framework_torch.models import configs
     from image_editing_framework_torch.models.weights import load_weights
     from image_editing_framework_torch.ops.attention import AttnSite
-    from image_editing_framework_torch.ops.controls import MasaCtrlAutoStep, MasaCtrlMaskStep, build_masactrl_control
+    from image_editing_framework_torch.ops.controls import (MasaCtrlAutoStep, MasaCtrlMaskStep, P2ZStep,
+                                                            build_masactrl_control)
     from image_editing_framework_torch.pipelines import tiny_pipeline
 
     inp = _unet_inputs(in_dir)
@@ -220,6 +223,115 @@ def suite_unet(mesh1d, rank, in_dir):
     finally:
         nti.nti_losses = losses
     res["nti_ring_skewed_stops"] = np.array(stops)
+
+    # pix2pix-zero under the ring, the checkpointed UNet forced on: one
+    # guided step's loss and gradient against references made unsharded
+    # (returned, for JAX to take the same), then pass 2 over the schedule
+    # with its references made again under the ring from a stored
+    # trajectory (``recompute_refs``)
+    unet.set_context_parallel(None)
+    with torch.no_grad():
+        _, refs = unet(t["p2z_src"], int(pipe.scheduler.timesteps[1]), t["p2z_ctx_src"], P2ZStep())
+    for key, ref in refs.items():
+        res[f"p2z_refs/{key}"] = ref.float().numpy()
+    unet.set_context_parallel(mesh1d, 64, "ring")
+    checkpointed = grad_unet(pipe, 16, force=True)
+    loss, grad = p2z.guidance_gradient(checkpointed, t["p2z_x"], int(pipe.scheduler.timesteps[1]), t["p2z_ctx"], refs)
+    res["p2z_ring_loss"], res["p2z_ring_grad"] = loss.numpy(), grad.numpy()
+    final, losses = p2z._guided_scan(checkpointed, pipe.scheduler, t["p2z_lat"], t["p2z_ctx"], None, 7.5, 0.1,
+                                     src_traj=t["p2z_src_traj"], ctx_src=t["p2z_ctx_src"])
+    res["p2z_ring_final"], res["p2z_ring_losses"] = final.numpy(), losses.numpy()
+    unet.set_context_parallel(None)
+    return res
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_rehearsal", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _ring_checks(smoke, mesh, device):
+    """chip_smoke.py's part (e) at tiny size on ``device``: (e1) on the tiny
+    UNet, then (c)'s DDIM inversion and (e2), (e3) on the tiny pipeline
+    under the ring (``cp_min_seq`` 64, the checkpointed UNet forced on),
+    with exact launch counts on the card (a forward's under the ring counted
+    first); the digests, stops and images the ranks compare."""
+    import torch
+
+    from image_editing_framework_torch import cli
+    from image_editing_framework_torch.pipelines import tiny_pipeline
+
+    world = torch.distributed.get_world_size()
+    pipe = tiny_pipeline(num_steps=smoke.STEPS // smoke.XL_NTI_STRIDE, device=device)
+    pipe.tokenizer.encode(" ".join(smoke.PROMPTS))
+    gen = torch.Generator().manual_seed(19)
+    lat, ctx = (torch.randn(*shape, generator=gen).to(device) for shape in ((2, 16, 16, 4), (2, 77, 32)))
+    sites = pipe.unet.config.num_transformer_blocks
+    pipe.unet.set_context_parallel(mesh, 64, "ring")
+    smoke.reset_launch_counts()
+    with torch.no_grad():
+        pipe.unet(lat, 501, ctx)
+    per_forward = smoke.tp_counts(device)[0]
+    pipe.unet.set_context_parallel(None)
+    ring_sites = (per_forward - sites) // (world - 1)
+    grads = smoke.cp_unet_gradients(pipe.unet, mesh, lat, ctx, None, min_seq=64, big_sites=ring_sites)
+    pipe.unet.set_context_parallel(mesh, 64, "ring")
+    image = (np.random.RandomState(0).rand(32, 32, 3) * 255).astype(np.uint8)
+    last, traj, _ = cli.invert(pipe, image, smoke.PROMPTS[0], "ddim", "p2p")
+    # the tiny UNet's first site runs on the ring and takes no NTI gradient
+    paths = smoke.ring_grad_paths(pipe, 32, last, traj, smoke.CP_NTI_EPSILON, per_forward, per_forward - world,
+                                  per_forward, remat=True)
+    res = {"per_forward": np.array(per_forward), "ring_sites": np.array(ring_sites)}
+    for batch, got in grads.items():
+        res[f"{batch}/digest"] = np.array(got["digest"])
+        res[f"{batch}/errors"] = np.array([got["latent"]["max_abs_err"], got["context"]["max_abs_err"]])
+        res[f"{batch}/limits"] = np.array([got["latent"]["limit"], got["context"]["limit"]])
+        res[f"{batch}/launches"] = np.array(got["launches"])
+    res["nti/digest"], res["nti/stops"] = np.array(paths["nti"]["digest"]), np.array(paths["nti"]["stops"])
+    res["nti/losses"] = np.array([loss[0] for loss in paths["nti"]["losses"]])
+    res["nti/launches"], res["p2z/launches"] = np.array(paths["nti"]["launches"]), np.array(paths["p2z"]["launches"])
+    res["p2z/images"] = np.array(paths["p2z"]["image_sha256"])
+    res["checkpointed"] = np.array([paths["nti"]["checkpointed_unet"], paths["p2z"]["checkpointed_unet"]])
+    return res
+
+
+def suite_cp_smoke(mesh1d):
+    """chip_smoke.py's part (e) rehearsed on CPU ranks at tiny size
+    (``_ring_checks``): every gate passes."""
+    import torch
+
+    return _ring_checks(_chip_smoke(), mesh1d, torch.device("cpu"))
+
+
+def suite_grad_card():
+    """The card twin of parts (d) and (e) (tests/test_torch_grad_card.py):
+    chip_smoke.py's tensor-parallel checks at tiny size (``tp_parts``, its
+    p2z guided step, NTI and p2z included) on a data 1 x tensor 2 mesh, and
+    part (e) at tiny size (``_ring_checks``), on the card over gloo (CUDA
+    tensors staged through host memory, NTI's lockstep included), with
+    exact launch counts."""
+    import torch
+
+    from image_editing_framework_torch.parallel import mesh as mesh_lib
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    # as chip_smoke.py's rank processes: the ranks' gradients through the
+    # layers outside the ring are bitwise equal only on deterministic cuDNN
+    torch.backends.cudnn.deterministic = True
+    smoke = _chip_smoke()
+    device = torch.device("cuda")
+    tp = smoke.tp_parts(mesh_lib.make_mesh(data=1, tensor=2, device_type="cuda"), device, tiny=True)
+    res = _ring_checks(smoke, mesh_lib.make_mesh(device_type="cuda"), device)
+    for key in ("p2z_step", "nti", "p2z", "train"):
+        res[f"tp/{key}/launches"] = np.array(tp[key]["launches"])
+        res[f"tp/{key}/digest"] = np.array(tp[key].get("digest", ""))
+    res["tp/nti/stops"] = np.array(tp["nti"]["stops"])
+    res["tp/p2z_step/error"] = np.array([tp["p2z_step"]["gradient"]["max_abs_err"], tp["p2z_step"]["gradient"]["limit"]])
     return res
 
 
@@ -260,6 +372,10 @@ def main(argv):
             res = torch_tp_workers.run(suite, rank, in_dir)
         elif suite == "mesh":
             res = suite_mesh()
+        elif suite == "cp_smoke":
+            res = suite_cp_smoke(mesh_lib.make_mesh(device_type="cpu"))
+        elif suite == "grad_card":
+            res = suite_grad_card()
         elif suite == "ring":
             mesh2d = mesh_lib.make_mesh(data=2, tensor=2, device_type="cpu") if world == 4 else None
             res = suite_ring(mesh_lib.make_mesh(device_type="cpu"), mesh2d, world)

@@ -303,7 +303,8 @@ def suite_edits(rank, in_dir):
 
 def _smoke_checks(smoke, mesh):
     """chip_smoke.py's part (d) at tiny size on the CPU: (d1) on a tiny UNet
-    after its unsharded forward, then (d2) and (d3) (``tp_parts``)."""
+    after its unsharded forward, then (d2), the p2z guided step, (d4),
+    (d5) and (d3) (``tp_parts``)."""
     import torch
 
     from image_editing_framework_torch.models import configs
@@ -343,12 +344,13 @@ def suite_smoke():
             res[f"{tag}/error"] = np.array(str(e))
             continue
         res[f"{tag}/error"] = np.array("")
-        for key in ("unet", "control", "train"):
-            for field in ("digest", "blend_digest", "replicated_digest", "loss"):
+        for key in ("unet", "control", "train", "p2z_step", "nti", "p2z"):
+            for field in ("digest", "blend_digest", "replicated_digest", "loss", "stops"):
                 if field in got[key]:
                     res[f"{tag}/{key}/{field}"] = np.array(got[key][field])
         res[f"{tag}/errors"] = np.array([got["unet"]["max_abs_err"], got["control"]["eps"]["max_abs_err"],
-                                         got["control"]["encode"]["max_abs_err"], got["train"]["grad_max_abs_err"]])
+                                         got["control"]["encode"]["max_abs_err"], got["train"]["grad_max_abs_err"],
+                                         got["p2z_step"]["gradient"]["max_abs_err"]])
     return res
 
 
