@@ -32,6 +32,7 @@ from image_editing_framework_torch.methods.p2z import _guided_scan_group
 from image_editing_framework_torch.models import configs as model_configs
 from image_editing_framework_torch.ops import controls as ctl
 from image_editing_framework_torch.ops.controls import stack_controls
+from image_editing_framework_torch.utils.profiling import phase
 
 
 def _encode_pairs(pipe, prompt_pairs: Sequence[Sequence[str]], latents: torch.Tensor):
@@ -58,9 +59,10 @@ def _encode_pairs(pipe, prompt_pairs: Sequence[Sequence[str]], latents: torch.Te
 
 def _decode_pairs(pipe, final: torch.Tensor) -> np.ndarray:
     """(G, 2, h, w, 4) latents -> (G, 2, H, W, 3) uint8 in one decode."""
-    g = final.shape[0]
-    imgs = pipe.latent2image(final.reshape((g * 2,) + tuple(final.shape[2:])))
-    return imgs.reshape((g, 2) + imgs.shape[1:])
+    with phase("decode"):
+        g = final.shape[0]
+        imgs = pipe.latent2image(final.reshape((g * 2,) + tuple(final.shape[2:])))
+        return imgs.reshape((g, 2) + imgs.shape[1:])
 
 
 def _edit(pipe, prompt_pairs, latents, ctrl, guidance_scale, uncond_seqs, source_replays) -> np.ndarray:
@@ -89,8 +91,9 @@ def p2p_edit_batch(
     s = pipe.scheduler.num_steps
     if cfgs is None:
         cfgs = [P2PConfig()] * g
-    ctrl = stack_controls([ctl.build_p2p_control(list(pair), pipe.tokenizer, s, cfg, device=pipe.device)
-                           for pair, cfg in zip(prompt_pairs, cfgs)])
+    with phase("control"):
+        ctrl = stack_controls([ctl.build_p2p_control(list(pair), pipe.tokenizer, s, cfg, device=pipe.device)
+                               for pair, cfg in zip(prompt_pairs, cfgs)])
     return _edit(pipe, prompt_pairs, latents, ctrl, guidance_scale, uncond_seqs, source_replays)
 
 
@@ -108,8 +111,9 @@ def masactrl_edit_batch(
     ``cfg.mode == "union"``) serves the group. Returns (G, 2, H, W, 3)
     uint8 [reconstruction, edit]."""
     cfg = cfg or default_masactrl_config(pipe)
-    ctrl = ctl.build_masactrl_control(pipe.scheduler.num_steps, pipe.unet.config.num_transformer_blocks, cfg,
-                                      device=pipe.device)
+    with phase("control"):
+        ctrl = ctl.build_masactrl_control(pipe.scheduler.num_steps, pipe.unet.config.num_transformer_blocks, cfg,
+                                          device=pipe.device)
     return _edit(pipe, prompt_pairs, latents, ctrl, guidance_scale, uncond_seqs, source_replays)
 
 
@@ -128,7 +132,8 @@ def pnp_edit_batch(
     cfg = cfg or PnPConfig()
     sites = model_configs.pnp_sites_xl if pipe.model_type == "xl" else model_configs.pnp_sites_sd
     attn_layers, conv_keys = sites(pipe.unet.config)
-    ctrl = ctl.build_pnp_control(pipe.scheduler.num_steps, cfg, attn_layers, conv_keys, device=pipe.device)
+    with phase("control"):
+        ctrl = ctl.build_pnp_control(pipe.scheduler.num_steps, cfg, attn_layers, conv_keys, device=pipe.device)
     return _edit(pipe, prompt_pairs, latents, ctrl, guidance_scale, uncond_seqs, source_replays)
 
 
@@ -175,15 +180,16 @@ def edit_batch(
     p2p it may be a list, one per image. ``source_replays`` (direct
     inversion) applies to every method but p2z, which ignores it as the
     serial dispatcher does (``cli.run_method``)."""
-    if method == "p2p":
-        cfgs = list(cfg) if isinstance(cfg, (list, tuple)) else None if cfg is None else [cfg] * len(prompt_pairs)
-        return p2p_edit_batch(pipe, prompt_pairs, latents, cfgs, guidance_scale, uncond_seqs, source_replays)
-    if method == "p2z":
-        return p2z_edit_batch(pipe, prompt_pairs, latents, cfg, guidance_scale, uncond_seqs)
-    fn = {"masactrl": masactrl_edit_batch, "pnp": pnp_edit_batch}.get(method)
-    if fn is None:
-        raise ValueError(f"unknown method {method}")
-    return fn(pipe, prompt_pairs, latents, cfg, guidance_scale, uncond_seqs, source_replays)
+    with phase("edit", sync=True, allocs=True):
+        if method == "p2p":
+            cfgs = list(cfg) if isinstance(cfg, (list, tuple)) else None if cfg is None else [cfg] * len(prompt_pairs)
+            return p2p_edit_batch(pipe, prompt_pairs, latents, cfgs, guidance_scale, uncond_seqs, source_replays)
+        if method == "p2z":
+            return p2z_edit_batch(pipe, prompt_pairs, latents, cfg, guidance_scale, uncond_seqs)
+        fn = {"masactrl": masactrl_edit_batch, "pnp": pnp_edit_batch}.get(method)
+        if fn is None:
+            raise ValueError(f"unknown method {method}")
+        return fn(pipe, prompt_pairs, latents, cfg, guidance_scale, uncond_seqs, source_replays)
 
 
 def _xl_added(pipe, added, g: int, h: int, w: int, uncond: bool = False):
@@ -201,17 +207,18 @@ def ddim_invert_batch(pipe, latents: torch.Tensor, prompts: Sequence[str], retur
     """Invert G images (G, 1, h, w, 4) under their source prompts in one
     batch: the last latents (G, 1, h, w, 4) and, if asked, the trajectories
     (G, S+1, 1, h, w, 4)."""
-    g = len(prompts)
-    context, added = pipe.encode_prompts(list(prompts))
-    added_cond = None
-    if pipe.model_type == "xl":
-        added_cond = {k: v[:, 0] for k, v in
-                      _xl_added(pipe, added, g, latents.shape[-3] * 8, latents.shape[-2] * 8).items()}
-    last, traj = _invert_scan(pipe.unet, pipe.scheduler, latents[:, 0], context[g:], added_cond)
-    last = last[:, None]
-    if return_trajectory:
-        return last, traj.transpose(0, 1)[:, :, None]
-    return last
+    with phase("invert", sync=True, allocs=True):
+        g = len(prompts)
+        context, added = pipe.encode_prompts(list(prompts))
+        added_cond = None
+        if pipe.model_type == "xl":
+            added_cond = {k: v[:, 0] for k, v in
+                          _xl_added(pipe, added, g, latents.shape[-3] * 8, latents.shape[-2] * 8).items()}
+        last, traj = _invert_scan(pipe.unet, pipe.scheduler, latents[:, 0], context[g:], added_cond)
+        last = last[:, None]
+        if return_trajectory:
+            return last, traj.transpose(0, 1)[:, :, None]
+        return last
 
 
 def nti_batch(pipe, trajectories: torch.Tensor, prompts: Sequence[str], cfg: Optional[NTIConfig] = None,

@@ -44,6 +44,7 @@ from image_editing_framework_torch.data.pie import DEFAULT_CATEGORIES, PIE, PIEP
 from image_editing_framework_torch.eval import batched
 from image_editing_framework_torch.eval import metrics as qmetrics
 from image_editing_framework_torch.eval.lpips import LPIPS
+from image_editing_framework_torch.utils import profiling
 from image_editing_framework_torch.utils.images import load_image, save_img
 
 
@@ -59,36 +60,42 @@ def _edit_group(pipe, method, group, images, inversion_type, method_kwargs, samp
     inversions from the cache (``cached``) or by ``ddim_invert_batch``
     (null-text then image by image, ``nti_group_serial``; direct with each
     image's trajectory replayed), each image's inversion saved if asked,
-    then one batched edit. Returns each image's (inversion, edit) uint8."""
-    src_prompts = [it.source_prompt for it in group]
-    source_replays = uncond_seqs = None
-    if cached is not None:
-        # the cache holds no trajectory: direct inversion edits as ddim here,
-        # as on the serial cache path
-        loaded = [cached(it) for it in group]
-        inverted = torch.stack([lat for lat, _ in loaded])
-        if inversion_type == "null-text":
-            if any(u is None for _, u in loaded):
-                raise ValueError("null-text batched sweep from inversion_path needs a cached uncond_seq for every "
-                                 "image")
-            uncond_seqs = torch.stack([u for _, u in loaded])
-    else:
-        lats = torch.stack([pipe.image2latent(image) for image in images])  # (G, 1, h, w, 4)
-        inverted, trajs = batched.ddim_invert_batch(pipe, lats, src_prompts, return_trajectory=True)
-        if inversion_type == "null-text":
-            uncond_seqs = batched.nti_group_serial(pipe, trajs, src_prompts, nti_config_for(method, pipe),
-                                                   guidance_scale=GUIDANCE_SCALE)
-        elif inversion_type == "direct":
-            source_replays = trajs
-    if save_inversions:
-        for gi, item in enumerate(group):
-            save_inversion(save_inversions, item.key, inverted[gi], None if uncond_seqs is None else uncond_seqs[gi])
-    cfg = (method_kwargs or {}).get("config")
-    if method == "p2p":
-        cfg = [cfg or _auto_p2p_config(it.source_prompt, it.target_prompt) for it in group]
-    imgs = batched.edit_batch(method, pipe, [[it.source_prompt, it.target_prompt] for it in group], inverted, cfg,
-                              sampler.guidance_scale, uncond_seqs=uncond_seqs, source_replays=source_replays)
-    return [(pair[0], pair[1]) for pair in imgs]
+    then one batched edit. Returns each image's (inversion, edit) uint8.
+    A torch profiler running at the group's start turns the tracer on
+    (``utils/profiling.py follow_profiler``)."""
+    profiling.follow_profiler()
+    with profiling.phase("group", allocs=True):
+        src_prompts = [it.source_prompt for it in group]
+        source_replays = uncond_seqs = None
+        if cached is not None:
+            # the cache holds no trajectory: direct inversion edits as ddim here,
+            # as on the serial cache path
+            loaded = [cached(it) for it in group]
+            inverted = torch.stack([lat for lat, _ in loaded])
+            if inversion_type == "null-text":
+                if any(u is None for _, u in loaded):
+                    raise ValueError("null-text batched sweep from inversion_path needs a cached uncond_seq for every "
+                                     "image")
+                uncond_seqs = torch.stack([u for _, u in loaded])
+        else:
+            with profiling.phase("encode"):
+                lats = torch.stack([pipe.image2latent(image) for image in images])  # (G, 1, h, w, 4)
+            inverted, trajs = batched.ddim_invert_batch(pipe, lats, src_prompts, return_trajectory=True)
+            if inversion_type == "null-text":
+                uncond_seqs = batched.nti_group_serial(pipe, trajs, src_prompts, nti_config_for(method, pipe),
+                                                       guidance_scale=GUIDANCE_SCALE)
+            elif inversion_type == "direct":
+                source_replays = trajs
+        if save_inversions:
+            for gi, item in enumerate(group):
+                save_inversion(save_inversions, item.key, inverted[gi],
+                               None if uncond_seqs is None else uncond_seqs[gi])
+        cfg = (method_kwargs or {}).get("config")
+        if method == "p2p":
+            cfg = [cfg or _auto_p2p_config(it.source_prompt, it.target_prompt) for it in group]
+        imgs = batched.edit_batch(method, pipe, [[it.source_prompt, it.target_prompt] for it in group], inverted, cfg,
+                                  sampler.guidance_scale, uncond_seqs=uncond_seqs, source_replays=source_replays)
+        return [(pair[0], pair[1]) for pair in imgs]
 
 
 def _json_safe_metrics(row: dict) -> dict:
@@ -160,7 +167,7 @@ def run_sweep(
         # alike. Restored after the sweep: the pipe outlives this call.
         pipe.decode_tile_latent = 64
     sampler = SamplerConfig(height=res, width=res, seed=seed)
-    times = []
+    times, group_times = [], []  # each image's time; each group's over its size, once a group
     done = skipped = 0
     t_start = time.perf_counter()
     pending = []
@@ -272,7 +279,8 @@ def run_sweep(
         load_future = pool.submit(load_group, groups[0]) if groups else None
         for gi, group in enumerate(groups):
             t0 = time.perf_counter()
-            images = load_future.result()
+            with profiling.phase("load_wait"):
+                images = load_future.result()
             load_future = pool.submit(load_group, groups[gi + 1]) if gi + 1 < len(groups) else None
             for item, image in zip(group, images):
                 os.makedirs(os.path.join(exp_path, item.key), exist_ok=True)
@@ -296,12 +304,17 @@ def run_sweep(
                 imgs = [run_method(method, pipe, [item.source_prompt, item.target_prompt], latent, sampler,
                                    uncond_seq, kw, source_replay=replay)]
             elapsed = (time.perf_counter() - t0) / len(group)
-            for item, image, (inv_img, edit_img), row in zip(group, images, imgs, tower_rows(group, images, imgs)):
+            group_times.append(elapsed)
+            with profiling.phase("towers"):
+                rows = tower_rows(group, images, imgs)
+            for item, image, (inv_img, edit_img), row in zip(group, images, imgs, rows):
                 finish(item, image, inv_img, edit_img, elapsed, row)
             done += len(group)
     finally:
-        pool.shutdown(wait=True)  # drain the workers even when an image failed
-        metric_pool.shutdown(wait=True)
+        with profiling.phase("drain"):
+            pool.shutdown(wait=True)  # drain the workers even when an image failed
+            metric_pool.shutdown(wait=True)
+        profiling.stop_following()
         pipe.decode_tile_latent = prev_tile
     # A metric failure keeps the stats of a sweep whose edits all succeeded:
     # errors are recorded in the stats, the stats file is written, and then
@@ -341,10 +354,11 @@ def run_sweep(
     import resource
 
     stats["host_peak_rss_mb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024
-    if tail:
-        stats["p50_s_per_image"] = round(float(np.percentile(tail, 50)), 3)
-        stats["p95_s_per_image"] = round(float(np.percentile(tail, 95)), 3)
-        stats["max_s_per_image"] = round(float(np.max(tail)), 3)
+    group_tail = group_times[1:]  # the percentiles over groups, not over a group's copies
+    if group_tail:
+        stats["p50_s_per_image"] = round(float(np.percentile(group_tail, 50)), 3)
+        stats["p95_s_per_image"] = round(float(np.percentile(group_tail, 95)), 3)
+        stats["max_s_per_image"] = round(float(np.max(group_tail)), 3)
     with open(os.path.join(exp_path, f"sweep_stats_{method}_{shard_index}.json"), "w") as f:
         json.dump(stats, f, indent=2)
     if metric_errors:

@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 import torch
 
 from image_editing_framework_torch.core.scheduler import DDIMSchedule, ddim_reverse_step, inversion_timestep
+from image_editing_framework_torch.utils.profiling import phase
 
 
 @torch.no_grad()
@@ -21,9 +22,10 @@ def _invert_scan(unet, sched: DDIMSchedule, latent: torch.Tensor, cond_context: 
     lat = latent
     traj = [latent]
     for i in range(sched.num_steps):
-        eps, _ = unet(lat, inversion_timestep(sched, i), cond_context, None, added_cond)
-        lat = ddim_reverse_step(sched, eps, i, lat)
-        traj.append(lat)
+        with phase("step"):
+            eps, _ = unet(lat, inversion_timestep(sched, i), cond_context, None, added_cond)
+            lat = ddim_reverse_step(sched, eps, i, lat)
+            traj.append(lat)
     return lat, torch.stack(traj)
 
 

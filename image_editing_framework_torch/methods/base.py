@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from image_editing_framework_torch.core.scheduler import DDIMSchedule, ddim_step
 from image_editing_framework_torch.ops.controls import NoneControl
+from image_editing_framework_torch.utils.profiling import phase
 
 
 @dataclasses.dataclass
@@ -116,34 +117,36 @@ def _denoise_scan(
     # per-step outputs, written into buffers made at step 0 (no stacking copy)
     rec_ys: Optional[Dict[str, torch.Tensor]] = None
     traj_ys: Optional[torch.Tensor] = None
-    for i in range(steps):
-        step_ctrl = ctrl.at_step(i)
-        if store_mode is not None:
-            step_ctrl = step_ctrl.bind_store(store, i)
-        if source_replays is not None:
-            # direct inversion: each image's source branch replays its
-            # inversion trajectory (masactrl/model/sd_utils.py:95-99)
-            lat = torch.cat([source_replays[:, steps - i].to(lat.dtype), lat[:, 1:]], dim=1)
-        if collect_trajectory:
-            # the UNet input latent of step i, after any replay (JAX
-            # ``lat_entry``): a later pass rematerialises this step's records
-            # from it (pix2pix-zero's recompute_refs)
-            if traj_ys is None:
-                traj_ys = lat.new_empty((steps,) + tuple(lat.shape))
-            traj_ys[i] = lat
-        ctx = flat(_group_context(contexts, uncond_seqs, i))
-        eps, rec = unet(flat(torch.cat([lat, lat], dim=1)), int(sched.timesteps[i]), ctx, step_ctrl, added)
-        if collect_records:
-            if rec_ys is None:
-                rec_ys = {k: v.new_empty((steps,) + tuple(v.shape)) for k, v in rec.items()}
-            for k, v in rec.items():
-                rec_ys[k][i] = v
-        eps_u, eps_c = eps.reshape((g, 2 * p) + tuple(eps.shape[1:])).chunk(2, dim=1)
-        lat = ddim_step(sched, eps_u + guidance_scale * (eps_c - eps_u), i, lat)
-        if store_mode == "sum":
-            store = {k: store[k] + rec[k].float() if k in store else rec[k].float() for k in rec}
-        if blend is not None:
-            lat = blend(lat[0], store)[None]
+    with phase("pass1" if collect_records or collect_trajectory else "denoise"):
+        for i in range(steps):
+            with phase("step"):
+                step_ctrl = ctrl.at_step(i)
+                if store_mode is not None:
+                    step_ctrl = step_ctrl.bind_store(store, i)
+                if source_replays is not None:
+                    # direct inversion: each image's source branch replays its
+                    # inversion trajectory (masactrl/model/sd_utils.py:95-99)
+                    lat = torch.cat([source_replays[:, steps - i].to(lat.dtype), lat[:, 1:]], dim=1)
+                if collect_trajectory:
+                    # the UNet input latent of step i, after any replay (JAX
+                    # ``lat_entry``): a later pass rematerialises this step's records
+                    # from it (pix2pix-zero's recompute_refs)
+                    if traj_ys is None:
+                        traj_ys = lat.new_empty((steps,) + tuple(lat.shape))
+                    traj_ys[i] = lat
+                ctx = flat(_group_context(contexts, uncond_seqs, i))
+                eps, rec = unet(flat(torch.cat([lat, lat], dim=1)), int(sched.timesteps[i]), ctx, step_ctrl, added)
+                if collect_records:
+                    if rec_ys is None:
+                        rec_ys = {k: v.new_empty((steps,) + tuple(v.shape)) for k, v in rec.items()}
+                    for k, v in rec.items():
+                        rec_ys[k][i] = v
+                eps_u, eps_c = eps.reshape((g, 2 * p) + tuple(eps.shape[1:])).chunk(2, dim=1)
+                lat = ddim_step(sched, eps_u + guidance_scale * (eps_c - eps_u), i, lat)
+                if store_mode == "sum":
+                    store = {k: store[k] + rec[k].float() if k in store else rec[k].float() for k in rec}
+                if blend is not None:
+                    lat = blend(lat[0], store)[None]
     return lat, rec_ys, traj_ys
 
 

@@ -38,6 +38,7 @@ from image_editing_framework_torch.core.scheduler import DDIMSchedule, ddim_step
 from image_editing_framework_torch.methods import common
 from image_editing_framework_torch.methods.base import _group_context, _group_of_one, denoise, flat, flat_added
 from image_editing_framework_torch.ops.controls import P2ZControl, P2ZStep
+from image_editing_framework_torch.utils.profiling import phase
 
 Records = Dict[str, torch.Tensor]
 
@@ -66,7 +67,8 @@ def guidance_gradient_group(
     with torch.enable_grad():
         _, rec = unet(x_in, t, context, P2ZStep(), added_cond)
         losses = attention_losses(rec, ref, group)
-        (g,) = torch.autograd.grad(losses.sum(), x_in)
+        with phase("backward"):
+            (g,) = torch.autograd.grad(losses.sum(), x_in)
     return losses.detach(), g
 
 
@@ -164,14 +166,16 @@ def _guided_scan_group(
     ``refs`` each step makes its references again from ``src_trajs``
     (``source_records_group``)."""
     lat, losses = latents0, []
-    for i in range(sched.num_steps):
-        if refs is not None:
-            ref = {k: v[i] for k, v in refs.items()}
-        else:
-            ref = source_records_group(unet, sched, i, src_trajs, ctx_srcs, uncond_seqs, added_srcs)
-        lat, loss = guided_step_group(unet, sched, i, lat, _group_context(contexts, uncond_seqs, i), ref,
-                                      guidance_scale, guidance_amount, added_conds)
-        losses.append(loss)
+    with phase("pass2"):
+        for i in range(sched.num_steps):
+            with phase("step"):
+                if refs is not None:
+                    ref = {k: v[i] for k, v in refs.items()}
+                else:
+                    ref = source_records_group(unet, sched, i, src_trajs, ctx_srcs, uncond_seqs, added_srcs)
+                lat, loss = guided_step_group(unet, sched, i, lat, _group_context(contexts, uncond_seqs, i), ref,
+                                              guidance_scale, guidance_amount, added_conds)
+                losses.append(loss)
     return lat, torch.stack(losses)
 
 

@@ -45,6 +45,7 @@ from image_editing_framework_torch.parallel.sharding import (
     row_parallel_linear,
     tensor_parallel_size,
 )
+from image_editing_framework_torch.utils.profiling import phase
 
 Records = Dict[str, torch.Tensor]
 
@@ -409,52 +410,53 @@ class UNet2DCondition(nn.Module):
         context: (B, 77, cross_dim); added_cond (SDXL): ``text_embeds``
         (B, pooled dim) and ``time_ids`` (B, 6 or 5). ``remat`` checkpoints
         the transformer blocks. Returns (eps NHWC, records)."""
-        cfg = self.config
-        if ctrl is None:
-            ctrl = NoneStep()
-        dtype = self.conv_in.weight.dtype
-        b = sample.shape[0]
-        if isinstance(timestep, torch.Tensor):
-            t = timestep.to(sample.device).expand(b)
-        else:
-            # a fill on the device: no host-to-device copy that the host waits for
-            t = torch.full((b,), timestep, device=sample.device)
-        temb = self.time_embedding(sinusoidal_timestep_embedding(t, cfg.block_out_channels[0], dtype=dtype))
-        if cfg.addition_time_embed_dim is not None:
-            if added_cond is None:
-                raise ValueError("an SDXL UNet needs added_cond (text_embeds, time_ids)")
-            ids = added_cond["time_ids"].to(sample.device).reshape(-1)
-            te = sinusoidal_timestep_embedding(ids, cfg.addition_time_embed_dim, dtype=dtype).reshape(b, -1)
-            temb = temb + self.add_embedding(torch.cat([added_cond["text_embeds"].to(dtype), te], dim=-1))
-        context = context.to(dtype)
+        with phase("unet"):  # the host's issue of one forward
+            cfg = self.config
+            if ctrl is None:
+                ctrl = NoneStep()
+            dtype = self.conv_in.weight.dtype
+            b = sample.shape[0]
+            if isinstance(timestep, torch.Tensor):
+                t = timestep.to(sample.device).expand(b)
+            else:
+                # a fill on the device: no host-to-device copy that the host waits for
+                t = torch.full((b,), timestep, device=sample.device)
+            temb = self.time_embedding(sinusoidal_timestep_embedding(t, cfg.block_out_channels[0], dtype=dtype))
+            if cfg.addition_time_embed_dim is not None:
+                if added_cond is None:
+                    raise ValueError("an SDXL UNet needs added_cond (text_embeds, time_ids)")
+                ids = added_cond["time_ids"].to(sample.device).reshape(-1)
+                te = sinusoidal_timestep_embedding(ids, cfg.addition_time_embed_dim, dtype=dtype).reshape(b, -1)
+                temb = temb + self.add_embedding(torch.cat([added_cond["text_embeds"].to(dtype), te], dim=-1))
+            context = context.to(dtype)
 
-        records: Records = {}
-        x = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2).contiguous())
-        skips = [x]
-        for blk in self.down_blocks:
-            for j, resnet in enumerate(blk.resnets):
-                x = resnet(x, temb, ctrl)
-                if len(blk.attentions):
-                    x, rec = blk.attentions[j](x, context, ctrl, records, remat)
-                    records.update(rec)
-                skips.append(x)
-            if hasattr(blk, "downsamplers"):
-                x = blk.downsamplers[0](x)
-                skips.append(x)
+            records: Records = {}
+            x = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2).contiguous())
+            skips = [x]
+            for blk in self.down_blocks:
+                for j, resnet in enumerate(blk.resnets):
+                    x = resnet(x, temb, ctrl)
+                    if len(blk.attentions):
+                        x, rec = blk.attentions[j](x, context, ctrl, records, remat)
+                        records.update(rec)
+                    skips.append(x)
+                if hasattr(blk, "downsamplers"):
+                    x = blk.downsamplers[0](x)
+                    skips.append(x)
 
-        x = self.mid_block.resnets[0](x, temb, ctrl)
-        x, rec = self.mid_block.attentions[0](x, context, ctrl, records, remat)
-        records.update(rec)
-        x = self.mid_block.resnets[1](x, temb, ctrl)
+            x = self.mid_block.resnets[0](x, temb, ctrl)
+            x, rec = self.mid_block.attentions[0](x, context, ctrl, records, remat)
+            records.update(rec)
+            x = self.mid_block.resnets[1](x, temb, ctrl)
 
-        for blk in self.up_blocks:
-            for j, resnet in enumerate(blk.resnets):
-                x = resnet(torch.cat([x, skips.pop()], dim=1), temb, ctrl)
-                if len(blk.attentions):
-                    x, rec = blk.attentions[j](x, context, ctrl, records, remat)
-                    records.update(rec)
-            if hasattr(blk, "upsamplers"):
-                x = blk.upsamplers[0](x)
+            for blk in self.up_blocks:
+                for j, resnet in enumerate(blk.resnets):
+                    x = resnet(torch.cat([x, skips.pop()], dim=1), temb, ctrl)
+                    if len(blk.attentions):
+                        x, rec = blk.attentions[j](x, context, ctrl, records, remat)
+                        records.update(rec)
+                if hasattr(blk, "upsamplers"):
+                    x = blk.upsamplers[0](x)
 
-        x = self.conv_out(F.silu(self.conv_norm_out(x)))
-        return x.permute(0, 2, 3, 1), records
+            x = self.conv_out(F.silu(self.conv_norm_out(x)))
+            return x.permute(0, 2, 3, 1), records

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from image_editing_framework_torch.utils.profiling import phase
+
 from image_editing_framework_torch.core.device import DeviceLike, resolve_device
 from image_editing_framework_torch.core.scheduler import DDIMSchedule, make_ddim_schedule
 from image_editing_framework_torch.models.clip import CLIPTextModel
@@ -109,11 +111,12 @@ class SDPipeline:
     ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
         """Returns (context, added_cond or None) for self.model_type;
         ``negative_prompt`` replaces the empty-string unconditional."""
-        if self.model_type == "xl":
-            encode = self.encode_prompts_refiner if self.is_refiner else self.encode_prompts_xl
-            context, pooled = encode(prompts, negative_prompt)
-            return context, {"text_embeds": pooled}
-        return self.encode_prompts_sd(prompts, negative_prompt), None
+        with phase("text_encode"):
+            if self.model_type == "xl":
+                encode = self.encode_prompts_refiner if self.is_refiner else self.encode_prompts_xl
+                context, pooled = encode(prompts, negative_prompt)
+                return context, {"text_embeds": pooled}
+            return self.encode_prompts_sd(prompts, negative_prompt), None
 
     def add_time_ids(self, height: int, width: int, batch: int, aesthetic_score: float = 6.0) -> torch.Tensor:
         """SDXL addition time ids, (batch, 6 or 5) f32. Base: (orig_h,
