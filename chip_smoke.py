@@ -1232,7 +1232,7 @@ def launch_counts():
     """(forward, dQ, dK/dV) kernel launches since the counts were set to 0."""
     from image_editing_framework_torch.ops import flash_attention as fa
 
-    return fa.flash_attention.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches
+    return fa.launch_counts()
 
 
 def reset_launch_counts():

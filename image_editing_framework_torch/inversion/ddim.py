@@ -3,7 +3,10 @@
 Counterpart of ``image_editing_framework_tpu/inversion/ddim.py``. Matches the
 reference loop (p2p/inversion/ddim.py:21-32): S conditional-only UNet
 evaluations walking timesteps in ascending order, collecting the full latent
-trajectory (S+1 latents including the input).
+trajectory (S+1 latents including the input). On the card the UNet's
+forward is replayed as CUDA graphs where its inputs allow them
+(``inversion/graphs.py``); the DDIM update stays an eager call through this
+module's ``ddim_reverse_step`` every step.
 """
 
 from __future__ import annotations
@@ -13,17 +16,19 @@ from typing import Optional, Tuple
 import torch
 
 from image_editing_framework_torch.core.scheduler import DDIMSchedule, ddim_reverse_step, inversion_timestep
+from image_editing_framework_torch.inversion import graphs
 from image_editing_framework_torch.utils.profiling import phase
 
 
 @torch.no_grad()
 def _invert_scan(unet, sched: DDIMSchedule, latent: torch.Tensor, cond_context: torch.Tensor, added_cond=None):
     """latent (B, h, w, 4), cond_context (B, 77, D) -> (last, trajectory (S+1, B, h, w, 4))."""
+    forward = graphs.forward_for(unet, latent, cond_context, added_cond)
     lat = latent
     traj = [latent]
     for i in range(sched.num_steps):
         with phase("step"):
-            eps, _ = unet(lat, inversion_timestep(sched, i), cond_context, None, added_cond)
+            eps = forward(lat, inversion_timestep(sched, i))
             lat = ddim_reverse_step(sched, eps, i, lat)
             traj.append(lat)
     return lat, torch.stack(traj)

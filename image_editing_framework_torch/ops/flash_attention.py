@@ -371,3 +371,17 @@ def flash_bwd_dkv(q, k, v, bias, do, lse, di, sm_scale: float) -> Tuple[torch.Te
 # Backward kernel launches since the counts were last set to 0.
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+
+
+def launch_counts() -> Tuple[int, int, int]:
+    """Every counted kernel's launches: (forward, dQ, dK/dV)."""
+    return flash_attention.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches
+
+
+def add_launches(counts: Tuple[int, int, int]) -> None:
+    """Add ``counts``, ordered as ``launch_counts`` gives them, to the
+    counters: the launches a CUDA graph's replay makes, which no Python call
+    counts."""
+    flash_attention.launches += counts[0]
+    flash_bwd_dq.launches += counts[1]
+    flash_bwd_dkv.launches += counts[2]

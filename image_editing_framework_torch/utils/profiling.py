@@ -18,7 +18,10 @@ innermost open span
   while the tracer is on; a ``sync=True`` span's own wait is not counted);
 * ``device_allocs`` / ``device_frees``: the caching allocator's
   ``cudaMalloc`` / ``cudaFree`` calls over a span opened with
-  ``allocs=True``.
+  ``allocs=True``;
+* what the program hands to ``count``: ``graph_replays`` and
+  ``graph_captures``, the inversion's CUDA graphs
+  (``inversion/graphs.py``).
 
 ``take()`` hands the spans out and clears them. Other threads record
 nothing.
@@ -45,7 +48,7 @@ class Span(NamedTuple):
     start_ns: int  # time.perf_counter_ns
     end_ns: int
     parent: int  # index of the enclosing span in the same list, -1 for none
-    counts: Dict[str, int]  # syncs, device_allocs, device_frees where counted
+    counts: Dict[str, int]  # syncs, device_allocs, device_frees, graph_replays, ... where counted
 
 
 class _Tracer:
@@ -201,6 +204,17 @@ def phase(name: str, sync: bool = False, allocs: bool = False):
     if threading.get_ident() != _TRACER.owner:
         return _NOOP
     return _Phase(_TRACER, name, sync, allocs)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` of the innermost open span (the
+    tracer on, the enabling thread); off, one flag test."""
+    if not _ON:
+        return
+    t = _TRACER
+    if t.counts and threading.get_ident() == t.owner:
+        counts = t.counts[-1]
+        counts[name] = counts.get(name, 0) + n
 
 
 @contextlib.contextmanager

@@ -3,7 +3,9 @@ pipelines' batched edits and batched null-text inversion against the same
 weights on the CPU (the kernels' plain versions) and against each image
 alone on the card, through chip_smoke.py's ``tiny_batched``; and a group
 served by ``EditService`` launching the flash kernel as often as one
-request.
+request; and the inversion's graphed UNet forward (``inversion/graphs.py``)
+at full SD1.5 and SDXL width against the eager scan, bit for bit, with the
+same kernel launches and attention calls.
 
 Imports only torch, the port and chip_smoke.py (which imports no JAX), so
 it runs on the GPU machine, which has no JAX (``--noconftest`` skips the
@@ -25,10 +27,14 @@ import os
 import pytest
 import torch
 
+from image_editing_framework_torch.eval import batched
+from image_editing_framework_torch.inversion import ddim
+from image_editing_framework_torch.models import unet as unet_module
 from image_editing_framework_torch.models.weights import load_weights
 from image_editing_framework_torch.ops import flash_attention as fa
-from image_editing_framework_torch.pipelines import tiny_pipeline
+from image_editing_framework_torch.pipelines import random_pipeline, tiny_pipeline
 from image_editing_framework_torch.serve import EditService
+from image_editing_framework_torch.utils import profiling
 
 SCRIPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")
 TOL = 1e-3
@@ -90,3 +96,55 @@ def test_a_served_group_launches_what_one_request_launches(smoke, tmp_path):
     group, stats = serve(tmp_path / "group", 3, 4)
     one, _ = serve(tmp_path / "one", 1, 4)
     assert stats["batched"] == 3 and group == one > 0
+
+
+GRAPH_STEPS = 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model, g", [("sd", 1), ("sd", 4), ("xl", 2)])
+def test_the_graphed_inversion_is_the_eager_one_bit_for_bit(smoke, monkeypatch, model, g):
+    """Two groups of the same shape at full width in bf16, through
+    ``ddim_invert_batch`` (at G = 1 through the serial ``ddim_invert``, as
+    chip_smoke.py's main path inverts): the trajectories equal the eager
+    scan's (a stand-in UNet keeps the eager loop) bit for bit, the flash
+    forward launches equal the eager scan's and the exact count,
+    ``models.unet.self_attention`` is called as often and with the same
+    shapes, and the two groups make one capture."""
+    version, _, side, _ = smoke.MODELS[model]
+    pipe = random_pipeline(version, num_steps=GRAPH_STEPS, dtype=torch.bfloat16, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    groups = [(torch.randn(g, 1, side // 8, side // 8, 4, generator=gen, device="cuda", dtype=torch.bfloat16),
+               [f"a photo of a {w} number {k}" for k in range(g)]) for w in ("cat", "dog")]
+    unet = pipe.unet
+    calls = []
+    attention = unet_module.self_attention
+    monkeypatch.setattr(unet_module, "self_attention",
+                        lambda q, k, v, *a, **kw: calls.append((q.shape, k.shape)) or attention(q, k, v, *a, **kw))
+
+    def run(lat, prompts):
+        fa.flash_attention.launches = 0
+        calls.clear()
+        if g == 1:
+            traj = ddim.ddim_invert(pipe, lat[:, 0], prompts[0])[1]
+        else:
+            traj = batched.ddim_invert_batch(pipe, lat, prompts, return_trajectory=True)[1]
+        torch.cuda.synchronize()
+        return traj, fa.flash_attention.launches, list(calls)
+
+    with monkeypatch.context() as m:
+        m.setattr(pipe, "unet", lambda *a, **kw: unet(*a, **kw))
+        eager = [run(*group) for group in groups]
+    profiling.enable()
+    try:
+        with profiling.phase("groups"):
+            graphed = [run(*group) for group in groups]
+    finally:
+        profiling.disable()
+        spans = profiling.take()
+    for (want, n_want, calls_want), (got, n_got, calls_got) in zip(eager, graphed):
+        assert torch.equal(got, want)
+        assert n_got == n_want == smoke.SITES[model] * GRAPH_STEPS
+        assert calls_got == calls_want
+    counted = {k: sum(s.counts.get(k, 0) for s in spans) for k in ("graph_captures", "graph_replays")}
+    assert counted == {"graph_captures": 1, "graph_replays": 2 * GRAPH_STEPS - 1}
