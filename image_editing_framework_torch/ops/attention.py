@@ -27,6 +27,11 @@ import torch
 
 from image_editing_framework_torch.ops.flash_attention import NEG_INF, flash_attention
 from image_editing_framework_torch.parallel.ring_attention import context_parallel_attention
+from image_editing_framework_torch.utils import profiling
+
+# The longest self-attention site of SD1.5 (64² latents) and SDXL (its first
+# attention level at 64²); SD2.1 at 768² attends over 9216 tokens.
+LONG_SEQ = 4096
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,7 +136,12 @@ def self_attention(
     first, then each rank takes its chunk of the gathered q, k, v and bias
     (``parallel/ring_attention.py context_parallel_attention``), and the
     output is all-gathered.
+
+    A call whose query is longer than ``LONG_SEQ`` tokens counts
+    ``attn_long_calls`` in the program's tracer (``utils/profiling.py``).
     """
+    if q.shape[2] > LONG_SEQ:
+        profiling.count("attn_long_calls")
     q, k, v, bias = plan_operands(q, k, v, plan, bias)
     if cp_mesh is None:
         return flash_attention(q, k, v, bias)

@@ -21,7 +21,8 @@ innermost open span
   ``allocs=True``;
 * what the program hands to ``count``: ``graph_replays`` and
   ``graph_captures``, the inversion's CUDA graphs
-  (``inversion/graphs.py``).
+  (``inversion/graphs.py``); ``attn_long_calls``, self-attention calls
+  over more than 4096 query tokens (``ops/attention.py``).
 
 ``take()`` hands the spans out and clears them. Other threads record
 nothing.

@@ -3,9 +3,9 @@ the tiny SD pipeline on the CPU (no JAX): off, a group records nothing and
 builds no span; on, a P2P and a pix2pix-zero group record exactly the
 span tree of the sweep's layers, every child inside its parent; the sweep's
 own spans around a group, with the tracer on by ``enable`` or by a running
-torch profiler (``follow_profiler``); ``take`` clears; the sync and
-allocation counters on a card; and ``eval/sweep.py``'s tail percentiles
-over groups."""
+torch profiler (``follow_profiler``); ``take`` clears; the long
+self-attention counter; the sync and allocation counters on a card; and
+``eval/sweep.py``'s tail percentiles over groups."""
 
 import json
 import os
@@ -149,6 +149,26 @@ def test_take_inside_a_phase_raises(tracer):
         with pytest.raises(RuntimeError):
             profiling.take()
     assert [s.name for s in profiling.take()] == ["open"]
+
+
+def test_a_self_attention_call_over_4096_tokens_counts_once(tracer):
+    """``ops/attention.py self_attention`` counts ``attn_long_calls`` under
+    the innermost span for a query of 4100 tokens, none for 4096 (the
+    longest site of SD1.5 and SDXL); off, nothing is recorded."""
+    from image_editing_framework_torch.ops.attention import self_attention
+
+    long_q, short_q = torch.zeros(1, 1, 4100, 8), torch.zeros(1, 1, 4096, 8)
+    self_attention(long_q, long_q, long_q, None)
+    assert profiling.take() == []
+    profiling.enable()
+    with profiling.phase("long"):
+        self_attention(long_q, long_q, long_q, None)
+    with profiling.phase("short"):
+        self_attention(short_q, short_q, short_q, None)
+    profiling.disable()
+    long_span, short_span = profiling.take()
+    assert (long_span.name, long_span.counts) == ("long", {"attn_long_calls": 1})
+    assert (short_span.name, short_span.counts) == ("short", {})
 
 
 @pytest.mark.cuda
