@@ -232,7 +232,7 @@ NTI_GROUP = 3
 P2Z_GROUP = 2
 SITES = {model: sum(shape[3] for shape in shapes) for model, shapes in PATH_SHAPES.items()}
 GRAD_SITES = {model: sum(shape[3] for shape in shapes) for model, shapes in GRAD_SHAPES.items()}
-SOURCES = ("flash_fwd", "flash_bwd", "mma_probe")
+SOURCES = ("flash_fwd", "flash_bwd", "mma_probe", "group_norm_nhwc")
 HEADS = 8  # of the edge cases
 # NTI inner iterations per step on the XL path (the default is 10); 1 since
 # the p2z paths joined the script, to keep it within half its time limit
@@ -405,6 +405,29 @@ def backward_instances():
     return rows, warnings
 
 
+# the GroupNorm kernel's bf16 instantiations: statistics, apply (with and
+# without SiLU), the backward's sums and dx (each with and without SiLU), the
+# parameters' gradients
+GN_INSTANCES = 8
+
+
+def group_norm_instances():
+    """Each instantiation of the GroupNorm kernels: kernel and dtype, SiLU,
+    registers and spills, from the build's ``-Xptxas -v`` report; ptxas
+    warnings besides."""
+    from image_editing_framework_torch.ops import _cuda
+
+    report = _cuda.ptxas_report("group_norm_nhwc")
+    rows = []
+    for name, info in ptxas_entries(report).items():
+        m = re.search(r"(gn_[a-z_]+)I(13__nv_bfloat16|f)(?:Lb([01])E)?E", name)
+        if m:
+            rows.append(dict(kernel=f"{m.group(1)}_{'bf16' if m.group(2) != 'f' else 'f32'}",
+                             silu=None if m.group(3) is None else m.group(3) == "1", **info))
+    warnings = [line.strip() for line in report.splitlines() if "warning" in line.lower()]
+    return rows, warnings
+
+
 # the probe kernel's instantiations: the S plan's two (K-major, MN-major) and
 # the PV plan's B K-major or MN-major at each of its 5 wgmma widths
 PROBE_INSTANCES = 12
@@ -444,7 +467,7 @@ def phase_device():
     # the probe's 12 (all bf16)
     for source, read, count in (("flash_fwd", forward_instances, 24), ("flash_bwd", backward_instances, 20),
                                 ("mma_probe", lambda: probe_instances(_cuda.ptxas_report("mma_probe")),
-                                 PROBE_INSTANCES)):
+                                 PROBE_INSTANCES), ("group_norm_nhwc", group_norm_instances, GN_INSTANCES)):
         rows, warnings = read()
         bf16 = [r for r in rows if r["kernel"].endswith("_bf16") or r["kernel"] == "mma_probe"]
         for row in rows:
@@ -455,6 +478,52 @@ def phase_device():
             raise AssertionError(f"{len(bf16)} bf16 {source} instantiations ({count} expected); spills in {spilled}")
         found[source] = bf16
     return found
+
+
+def phase_group_norm():
+    """The GroupNorm kernel (``csrc/group_norm_nhwc.cu``) against its plain
+    version at each level of the sweeps' UNets and VAE
+    (``tools/bench_group_norm.py LEVELS``), bf16, SiLU fused in: y and dx
+    within 2^-7 · max|ref| of the plain versions in f32, which a group
+    boundary moved by one channel and a SiLU left out must exceed; then the
+    level's times (forward and backward device ms, bound, F.group_norm +
+    F.silu). Returns the worst error over its limit and the rows."""
+    from image_editing_framework_torch.ops import group_norm as gn
+    from image_editing_framework_torch.tools.bench_group_norm import GROUPS, LEVELS, level
+
+    worst, rows = 0.0, []
+    for name, n, c, h, w in LEVELS:
+        gen = torch.Generator(device="cuda").manual_seed(n * c + h)
+        # channels off-centre by different amounts, so that groups differ
+        x = torch.randn(n, c, h, w, device="cuda", generator=gen) * 2 + torch.randn(
+            1, c, 1, 1, device="cuda", generator=gen) * 3
+        x = x.to(torch.bfloat16)
+        x = x.contiguous(memory_format=torch.channels_last)
+        weight, bias = (1 + 0.3 * torch.randn(c, device="cuda", generator=gen)).to(torch.bfloat16), (
+            0.5 * torch.randn(c, device="cuda", generator=gen)).to(torch.bfloat16)
+        dy = torch.randn_like(x)
+        f32 = [t.float() for t in (x, weight, bias, dy)]
+        y, mean, rstd = gn._forward(x, weight, bias, GROUPS, 1e-5, True)
+        ref = gn.group_norm_reference(f32[0], f32[1], f32[2], GROUPS, 1e-5, True)
+        m32, r32 = gn.group_norm_stats_reference(f32[0], GROUPS, 1e-5)
+        dx = gn.group_norm_nhwc_bwd(x, dy, weight, bias, mean, rstd, GROUPS, True, params=False)[0]
+        dx_ref = gn.group_norm_bwd_reference(f32[0], f32[3], f32[1], f32[2], m32, r32, GROUPS, True, False)[0]
+        shifted = torch.roll(gn.group_norm_reference(torch.roll(f32[0], 1, 1), torch.roll(f32[1], 1),
+                                                     torch.roll(f32[2], 1), GROUPS, 1e-5, True), -1, 1)
+        faults = {"group_moved_by_a_channel": (shifted - ref).abs().max().item(),
+                  "silu_left_out": (gn.group_norm_reference(*f32[:3], GROUPS, 1e-5) - ref).abs().max().item()}
+        errs = {"y": (y.float() - ref).abs().max().item(), "dx": (dx.float() - dx_ref).abs().max().item()}
+        tols = {"y": 2.0 ** -7 * ref.abs().max().item(), "dx": 2.0 ** -7 * dx_ref.abs().max().item()}
+        passed = [k for k, v in faults.items() if not v > tols["y"]]
+        if passed:
+            raise AssertionError(f"the GroupNorm limit {tols['y']} does not reject {passed} at {name}: {faults}")
+        if any(errs[k] > tols[k] for k in errs):
+            raise AssertionError(f"group_norm_nhwc at {name}: errors {errs} over the limits {tols}")
+        worst = max(worst, *(errs[k] / tols[k] for k in errs))
+        rows.append(dict(level(name, n, c, h, w), max_abs_err=errs, tol=tols, faults=faults))
+        emit("group_norm", **rows[-1])
+        del x, y, dx, dy, ref, dx_ref, shifted, f32
+    return worst, rows
 
 
 def fault_readings(q, k, v, ref, bias=None):
@@ -4487,6 +4556,7 @@ def main() -> int:
     worst, sums, bias_sums, enqueue = run("kernels", phase_kernels, gen)
     bwd_worst, bwd_sums, p2z_bwd_sums = run("bwd_kernels", phase_bwd_kernels, gen)
     probe = run("probe", phase_probe)
+    norm_worst, norm_rows = run("group_norm", phase_group_norm)
     run("tiny", phase_tiny)
     launches, unet_ms, bwd_launches, masa_runs, p2z_runs = {}, {}, {}, {}, {}
     for model, prefix in (("sd", ""), ("xl", "xl_")):
@@ -4671,7 +4741,23 @@ def main() -> int:
         "instances": [{key: r.get(key) for key in ("plan", "ta", "tb", "np", "registers", "spill_stores",
                                                     "spill_loads")} for r in instances["mma_probe"]],
     }
-    print(json.dumps({"kernels": [fwd] + bwd + [mma_probe]}))
+    group_norm = {
+        "name": "group_norm_nhwc", "route": "cuda", "source": "image_editing_framework_torch/csrc/group_norm_nhwc.cu",
+        "replaces": "none: the JAX package's GroupNorm is jnp code that XLA fuses with its SiLU",
+        "max_err_over_limit": norm_worst,
+        "levels": [{key: row[key] for key in ("level", "shape", "fwd_ms", "bwd_ms", "bound_ms", "fwd_roofline",
+                                               "library_ms", "library_bwd_ms")} for row in norm_rows],
+        "work": "one bf16 GroupNorm + SiLU of each level (tools/bench_group_norm.py LEVELS); bound: one read of x "
+                "and one write of y; library: F.group_norm then F.silu on the NCHW activation",
+        "design": "channels-last rows at 16 bytes a thread, one wave of blocks from the kernels' occupancy: "
+                  "per-channel shifted f32 sums folded into per-group partials per (sample, split) in shared "
+                  "memory, no atomics; the apply's blocks sum their sample's partials (a warp a group, f64) and "
+                  "write y = silu((x - mean)·gamma·rstd + beta) in the same width, walking their rows backwards "
+                  "for L2 hits; backward: two passes, the output recomputed",
+        "instances": [{key: r.get(key) for key in ("kernel", "silu", "registers", "spill_stores", "spill_loads")}
+                      for r in instances["group_norm_nhwc"]],
+    }
+    print(json.dumps({"kernels": [fwd] + bwd + [mma_probe, group_norm]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -31,6 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from image_editing_framework_torch.models.layout import channels_last_convs_
+
 DTYPES = {
     "F64": torch.float64,
     "F32": torch.float32,
@@ -196,13 +198,15 @@ def load_params(
     the checkpoint fills every tensor ``to_empty`` made); a materialised
     module keeps its device, and its dtype unless ``dtype`` is given. Each
     tensor goes from the map to the module's device as it is stored and is
-    cast there.
+    cast there. On a CUDA device the UNet's and the VAE's conv weights are
+    made channels-last before they are filled (``models/layout.py``).
     """
     _check_keys(module, ckpt, strict)
     if dtype is not None:
         module = module.to(dtype=dtype)
     if any(p.is_meta for p in module.parameters()):
         module = module.to_empty(device=torch.device("cpu") if device is None else device)
+    channels_last_convs_(module)
     with torch.no_grad():
         for key, target in module.state_dict().items():
             src = _tensor(ckpt[key]).to(target.device)

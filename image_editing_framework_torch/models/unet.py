@@ -8,8 +8,10 @@ editable f32 probabilities, and ResNet blocks expose the PnP feature hook
 keyed like ``up1_res1``.
 
 Module and parameter names follow diffusers, so ``state_dict()`` keys are
-diffusers keys. Inside, activations are NCHW (cuDNN convolutions); the
-public ``forward`` takes and returns the JAX package's NHWC latents.
+diffusers keys. Inside, activations have the NCHW shape: channels-last
+memory on a CUDA device, contiguous on the CPU (``models/layout.py``), and
+every GroupNorm, with the SiLU that follows it, is ``ops/group_norm.py``'s;
+the public ``forward`` takes and returns the JAX package's NHWC latents.
 
 SDXL's ``added_cond`` (``text_embeds`` and ``time_ids``) feeds the
 ``add_embedding`` MLP, whose output joins the time embedding. ``remat=True``
@@ -29,6 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from image_editing_framework_torch.models.embeddings import TimestepEmbedding, sinusoidal_timestep_embedding
+from image_editing_framework_torch.models.layout import ChannelsLastNet, to_nchw
 from image_editing_framework_torch.ops.attention import (
     AttnSite,
     apply_probs,
@@ -38,6 +41,7 @@ from image_editing_framework_torch.ops.attention import (
     split_heads,
 )
 from image_editing_framework_torch.ops.controls import NoneStep
+from image_editing_framework_torch.ops.group_norm import GroupNorm
 from image_editing_framework_torch.parallel.sharding import (
     copy_to_tensor_parallel,
     gather_heads,
@@ -215,13 +219,15 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2D(nn.Module):
-    """Spatial transformer: GN -> proj_in -> blocks -> proj_out + residual."""
+    """Spatial transformer: GN -> proj_in -> blocks -> proj_out + residual.
+    A channels-last activation enters the blocks as (B, HW, C) and leaves
+    them through views, so the residual add meets its own layout."""
 
     def __init__(self, channels: int, heads: int, cross_dim: int, layers: Tuple[int, ...], place: str,
                  use_linear_projection: bool = False):
         super().__init__()
         self.use_linear_projection = use_linear_projection
-        self.norm = nn.GroupNorm(32, channels, eps=1e-6)
+        self.norm = GroupNorm(32, channels, eps=1e-6)
         proj = (lambda: nn.Linear(channels, channels)) if use_linear_projection else (
             lambda: nn.Conv2d(channels, channels, 1))
         self.proj_in = proj()
@@ -264,18 +270,18 @@ class ResnetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, temb_dim: int, key: str):
         super().__init__()
         self.key = key  # PnP injection site key, e.g. "up1_res1"
-        self.norm1 = nn.GroupNorm(32, in_channels, eps=1e-5)
+        self.norm1 = GroupNorm(32, in_channels, eps=1e-5)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = nn.Linear(temb_dim, out_channels)
-        self.norm2 = nn.GroupNorm(32, out_channels, eps=1e-5)
+        self.norm2 = GroupNorm(32, out_channels, eps=1e-5)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         if in_channels != out_channels:
             self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x, temb, ctrl):
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(self.norm1(x, silu=True))
         h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(self.norm2(h, silu=True))
         # PnP spatial feature injection after conv2 (pnp/model/register.py:163-168).
         h = ctrl.resnet_hook(self.key, h)
         if hasattr(self, "conv_shortcut"):
@@ -313,7 +319,7 @@ class _Block(nn.Module):
             setattr(self, resampler_name, nn.ModuleList(resamplers))
 
 
-class UNet2DCondition(nn.Module):
+class UNet2DCondition(ChannelsLastNet):
     """``cp_mesh`` (a ``DeviceMesh``): context parallelism, as the JAX
     ``UNet2DCondition``'s: every self-attention site of at least
     ``cp_min_seq`` tokens splits its sequence over the mesh's 'data' axis,
@@ -380,7 +386,7 @@ class UNet2DCondition(nn.Module):
                 _Block(resnets, attns, [] if last else [Upsample(out_ch)], None if last else "upsamplers")
             )
 
-        self.conv_norm_out = nn.GroupNorm(32, block0, eps=1e-5)
+        self.conv_norm_out = GroupNorm(32, block0, eps=1e-5)
         self.conv_out = nn.Conv2d(block0, cfg.out_channels, 3, padding=1)
         self.tp_mesh = None  # tensor parallelism's mesh, set by parallel/sharding.py shard_params
         self.set_context_parallel(cp_mesh, cp_min_seq, cp_mode)
@@ -431,7 +437,7 @@ class UNet2DCondition(nn.Module):
             context = context.to(dtype)
 
             records: Records = {}
-            x = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2).contiguous())
+            x = self.conv_in(to_nchw(sample.to(dtype)))
             skips = [x]
             for blk in self.down_blocks:
                 for j, resnet in enumerate(blk.resnets):
@@ -458,5 +464,5 @@ class UNet2DCondition(nn.Module):
                 if hasattr(blk, "upsamplers"):
                     x = blk.upsamplers[0](x)
 
-            x = self.conv_out(F.silu(self.conv_norm_out(x)))
+            x = self.conv_out(self.conv_norm_out(x, silu=True))
             return x.permute(0, 2, 3, 1), records

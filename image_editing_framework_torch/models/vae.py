@@ -4,7 +4,10 @@ Counterpart of ``image_editing_framework_tpu/models/vae.py``. The reference
 calls the VAE at two sites: encode to the latent distribution *mean*
 (p2p/inversion/ddim.py:39) and decode (p2p/model/sd_utils.py:84). GroupNorm
 eps 1e-6 throughout. Module and parameter names follow diffusers. Inside,
-activations are NCHW; ``encode``/``decode`` take and return NHWC as JAX does.
+activations have the NCHW shape: channels-last memory on a CUDA device,
+contiguous on the CPU (``models/layout.py``), and every GroupNorm, with the
+SiLU that follows it, is ``ops/group_norm.py``'s; ``encode``/``decode`` take
+and return NHWC as JAX does.
 The mid-block attention is single-head (d = 512) and plain tensor code, as
 in JAX. Tiled decoding arrives with a later slice.
 """
@@ -18,6 +21,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from image_editing_framework_torch.models.layout import ChannelsLastNet, to_nchw
+from image_editing_framework_torch.ops.group_norm import GroupNorm
 
 
 def _gn(ch: int) -> int:
@@ -41,16 +47,16 @@ TINY_VAE = VAEConfig(block_out_channels=(16, 32), layers_per_block=1)
 class VAEResnet(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
-        self.norm1 = nn.GroupNorm(_gn(in_channels), in_channels, eps=1e-6)
+        self.norm1 = GroupNorm(_gn(in_channels), in_channels, eps=1e-6)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
-        self.norm2 = nn.GroupNorm(_gn(out_channels), out_channels, eps=1e-6)
+        self.norm2 = GroupNorm(_gn(out_channels), out_channels, eps=1e-6)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         if in_channels != out_channels:
             self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(self.norm1(x, silu=True))
+        h = self.conv2(self.norm2(h, silu=True))
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         return x + h
@@ -61,7 +67,7 @@ class VAEAttention(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.group_norm = nn.GroupNorm(_gn(channels), channels, eps=1e-6)
+        self.group_norm = GroupNorm(_gn(channels), channels, eps=1e-6)
         self.to_q, self.to_k, self.to_v = (nn.Linear(channels, channels) for _ in range(3))
         self.to_out = nn.ModuleList([nn.Linear(channels, channels)])
 
@@ -120,7 +126,7 @@ class Encoder(nn.Module):
                 _Level(resnets, None if last else "downsamplers", None if last else _Sampler(out_ch, 2))
             )
         self.mid_block = _Mid(chs[-1])
-        self.conv_norm_out = nn.GroupNorm(_gn(chs[-1]), chs[-1], eps=1e-6)
+        self.conv_norm_out = GroupNorm(_gn(chs[-1]), chs[-1], eps=1e-6)
         self.conv_out = nn.Conv2d(chs[-1], 2 * cfg.latent_channels, 3, padding=1)
 
     def forward(self, x):
@@ -132,7 +138,7 @@ class Encoder(nn.Module):
                 # diffusers VAE downsampler uses asymmetric (0,1) padding.
                 h = level.downsamplers[0].conv(F.pad(h, (0, 1, 0, 1)))
         h = self.mid_block(h)
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self.conv_out(self.conv_norm_out(h, silu=True))
 
 
 class Decoder(nn.Module):
@@ -152,7 +158,7 @@ class Decoder(nn.Module):
             self.up_blocks.append(
                 _Level(resnets, None if last else "upsamplers", None if last else _Sampler(out_ch, 1))
             )
-        self.conv_norm_out = nn.GroupNorm(_gn(rev[-1]), rev[-1], eps=1e-6)
+        self.conv_norm_out = GroupNorm(_gn(rev[-1]), rev[-1], eps=1e-6)
         self.conv_out = nn.Conv2d(rev[-1], cfg.out_channels, 3, padding=1)
 
     def forward(self, z):
@@ -162,10 +168,10 @@ class Decoder(nn.Module):
                 h = resnet(h)
             if hasattr(level, "upsamplers"):
                 h = level.upsamplers[0].conv(F.interpolate(h, scale_factor=2.0, mode="nearest"))
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self.conv_out(self.conv_norm_out(h, silu=True))
 
 
-class AutoencoderKL(nn.Module):
+class AutoencoderKL(ChannelsLastNet):
     def __init__(self, config: VAEConfig):
         super().__init__()
         self.config = config
@@ -177,14 +183,14 @@ class AutoencoderKL(nn.Module):
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) image in [-1, 1] -> scaled latent mean (B, H/8, W/8, 4)
         — the reference's image2latent (p2p/inversion/ddim.py:35-41)."""
-        moments = self.quant_conv(self.encoder(x.permute(0, 3, 1, 2).contiguous()))
+        moments = self.quant_conv(self.encoder(to_nchw(x)))
         mean = moments[:, : self.config.latent_channels]
         return (mean * self.config.scaling_factor).permute(0, 2, 3, 1)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Scaled NHWC latents -> (B, H, W, 3) in [-1, 1]
         (reference latent2image, p2p/model/sd_utils.py:82-88)."""
-        z = z.permute(0, 3, 1, 2).contiguous() / self.config.scaling_factor
+        z = to_nchw(z) / self.config.scaling_factor
         return self.decoder(self.post_quant_conv(z)).permute(0, 2, 3, 1)
 
 

@@ -166,13 +166,16 @@ def _frozen(module: nn.Module) -> nn.Module:
 
 def _build(cls, config, device: torch.device, dtype: torch.dtype, seed: int) -> nn.Module:
     """``cls(config)`` on ``device`` in ``dtype`` with seeded random weights,
-    built without a default initialisation (meta device first)."""
+    built without a default initialisation (meta device first); on a CUDA
+    device the UNet's and the VAE's conv weights channels-last
+    (``models/layout.py``)."""
+    from image_editing_framework_torch.models.layout import channels_last_convs_
     from image_editing_framework_torch.models.weights import random_init_
 
     with torch.device("meta"):
         module = cls(config)
     module = module.to_empty(device=device)
-    return _frozen(random_init_(module, seed).to(dtype))
+    return _frozen(channels_last_convs_(random_init_(module, seed).to(dtype)))
 
 
 def random_pipeline(

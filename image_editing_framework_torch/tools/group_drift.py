@@ -71,8 +71,10 @@ def row_dependence(pipe, batch: int, side: int = 64, t: int = 981) -> dict:
         busy[0] = True
         try:
             rows = [isinstance(a, torch.Tensor) and a.dim() and a.shape[0] == batch for a in args]
-            out = fn(*[a[:1].expand_as(a).contiguous() if r else a for a, r in zip(args, rows)], **kwargs)
-            alone = fn(*[a[:1].contiguous() if r else a for a, r in zip(args, rows)], **kwargs)
+            # copies in the input's own layout (channels-last activations stay so)
+            out = fn(*[torch.empty_like(a).copy_(a[:1].expand_as(a)) if r else a for a, r in zip(args, rows)],
+                     **kwargs)
+            alone = fn(*[a[:1].clone() if r else a for a, r in zip(args, rows)], **kwargs)
         finally:
             busy[0] = False
         calls[name] += 1

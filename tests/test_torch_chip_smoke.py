@@ -66,10 +66,10 @@ def test_chip_smoke_wires_every_phase_into_main():
     for phase in ("phase_device", "phase_kernels", "phase_bwd_kernels", "phase_probe", "phase_tiny",
                   "phase_main_path", "phase_checkpoint_path", "phase_sweep_path", "phase_xl_checkpoint_path",
                   "phase_nti_path", "phase_profile", "phase_masactrl_path", "phase_pnp_path", "phase_p2z_path",
-                  "phase_refiner"):
+                  "phase_refiner", "phase_group_norm"):
         assert callable(getattr(smoke, phase)) and phase in source, phase
     assert '("sd", ""), ("xl", "xl_")' in source  # both models go through main, NTI and profile
-    for kernel in ("flash_fwd", "flash_bwd_", "mma_probe"):
+    for kernel in ("flash_fwd", "flash_bwd_", "mma_probe", "group_norm_nhwc"):
         assert f'"name": "{kernel}' in source or f'"name": f"{kernel}' in source, kernel
     assert smoke.PATH_SHAPES["xl"] == [(4096, 64, 10, 10), (1024, 64, 20, 60)]
     assert smoke.SITES == {"sd": 16, "xl": 70, "sd21": 16} and smoke.GRAD_SITES == {"sd": 15, "xl": 69, "sd21": 15}

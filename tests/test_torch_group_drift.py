@@ -13,6 +13,7 @@ import torch
 
 import torch_port_helpers  # noqa: F401  (one intra-op thread per worker)
 from image_editing_framework_torch.models import unet as unet_module
+from image_editing_framework_torch.ops import group_norm
 from image_editing_framework_torch.pipelines import tiny_pipeline
 from image_editing_framework_torch.tools.group_drift import ATTENTION_CALLS, row_dependence
 
@@ -40,9 +41,9 @@ def _plant(monkeypatch, where, fault):
     if where == "cross_attention_probs":
         real = unet_module.cross_attention_probs
         monkeypatch.setattr(unet_module, "cross_attention_probs", lambda q, k: fault(real(q, k)))
-    elif where == "GroupNorm":
-        real = torch.nn.GroupNorm.forward
-        monkeypatch.setattr(torch.nn.GroupNorm, "forward", lambda self, x: fault(real(self, x)))
+    elif where == "GroupNorm":  # the UNet's GroupNorm modules, SiLU fused in where asked
+        real = group_norm.GroupNorm.forward
+        monkeypatch.setattr(group_norm.GroupNorm, "forward", lambda self, x, silu=False: fault(real(self, x, silu)))
 
 
 @pytest.mark.parametrize("where,fault,kind", [
